@@ -1,0 +1,158 @@
+"""IoU of convex quads: kernel and plain twin.
+
+``quad_iou_pairs`` (IoU of q1[p] with q2[p]) is what the device LANMS calls;
+``quad_iou_matrix`` (all pairs of two sets) is the counterpart of the TPU
+kernel's matrix layout. On CUDA tensors both launch ``csrc/quad_iou.cu``
+(the counterpart of ``manuscript_tpu/ops/pallas_iou.py``); on CPU tensors
+they run the plain torch version below, which is the same Sutherland–Hodgman
+clip as ``manuscript_tpu/ops/lanms_jax.quad_iou_pairs``. Any other device,
+or a CUDA tensor the kernel does not take, raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+SLOTS = 8  # most vertices quad ∩ quad can have under S-H clipping
+launches = 0  # kernel launches (pairs and matrix), for proof of the route
+
+
+def _clip(polys, counts, a, b):
+    """Clip repetition-padded polygons (P, 8, 2) against the half-plane left
+    of a→b (P, 2). Emits past slot 8 are dropped; counts keep running."""
+    p = polys.shape[0]
+    prev = torch.roll(polys, 1, dims=1)
+    ab = b - a
+
+    def side(pts):
+        return ab[:, None, 0] * (pts[..., 1] - a[:, None, 1]) - ab[:, None, 1] * (
+            pts[..., 0] - a[:, None, 0]
+        )
+
+    curr_in = side(polys) >= 0
+    prev_in = side(prev) >= 0
+    is_dup = torch.all(polys == prev, dim=-1)
+
+    d1 = polys - prev
+    denom = d1[..., 0] * ab[:, None, 1] - d1[..., 1] * ab[:, None, 0]
+    ca = a[:, None, :] - prev
+    t = (ca[..., 0] * ab[:, None, 1] - ca[..., 1] * ab[:, None, 0]) / torch.where(
+        denom == 0, torch.ones_like(denom), denom
+    )
+    inter = prev + t[..., None] * d1
+    inter = torch.where((denom == 0)[..., None], prev, inter)
+
+    emit_inter = (curr_in ^ prev_in) & ~is_dup
+    emit_curr = curr_in & ~is_dup
+    emits = torch.stack([inter, polys], dim=2).reshape(p, 2 * SLOTS, 2)
+    emask = torch.stack([emit_inter, emit_curr], dim=2).reshape(p, 2 * SLOTS)
+    pos = torch.cumsum(emask.to(torch.int64), dim=1) - 1
+    target = torch.where(emask & (pos < SLOTS), pos, SLOTS)
+    new = torch.zeros(p, SLOTS + 1, 2, dtype=polys.dtype, device=polys.device)
+    new.scatter_(1, target[..., None].expand(p, 2 * SLOTS, 2), emits)
+    new = new[:, :SLOTS]
+    new_counts = emask.sum(dim=1)
+
+    slot = torch.arange(SLOTS, device=polys.device)[None, :]
+    live = slot < new_counts[:, None]
+    is_last = slot == (new_counts - 1)[:, None]
+    last_v = torch.where(is_last[..., None], new, torch.zeros_like(new)).sum(
+        dim=1, keepdim=True
+    )
+    return torch.where(live[..., None], new, last_v), new_counts
+
+
+def _area(polys):
+    """Shoelace area of closed polygons (P, n, 2)."""
+    nxt = torch.roll(polys, -1, dims=1)
+    cross = polys[..., 0] * nxt[..., 1] - nxt[..., 0] * polys[..., 1]
+    return torch.abs(cross.sum(dim=1)) / 2.0
+
+
+def quad_iou_pairs_plain(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """IoU of paired quads: q1, q2 (P, 4, 2) → (P,)."""
+    polys = torch.cat([q1, q1[:, 3:4].expand(-1, SLOTS - 4, 2)], dim=1)
+    counts = torch.full((q1.shape[0],), 4, dtype=torch.int64, device=q1.device)
+    for e in range(4):
+        polys, counts = _clip(polys, counts, q2[:, e], q2[:, (e + 1) % 4])
+    inter = torch.where(counts > 2, _area(polys), torch.zeros_like(polys[:, 0, 0]))
+    union = _area(q1) + _area(q2) - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(union))
+
+
+def quad_iou_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU: a (N, 4, 2), b (M, 4, 2) → (N, M)."""
+    n, m = a.shape[0], b.shape[0]
+    return quad_iou_pairs_plain(
+        a.repeat_interleave(m, dim=0), b.repeat(n, 1, 1)
+    ).reshape(n, m)
+
+
+def _lib():
+    lib = _build.library("quad_iou")
+    if lib.quad_iou_pairs_launch.argtypes is None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.quad_iou_pairs_launch.argtypes = [ptr, ptr, ptr, i64, ptr]
+        lib.quad_iou_matrix_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
+        lib.quad_iou_pairs_launch.restype = ctypes.c_int
+        lib.quad_iou_matrix_launch.restype = ctypes.c_int
+    return lib
+
+
+def _require(t: torch.Tensor, name: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"quad_iou: {name} is on {t.device}, not CUDA")
+    if t.dtype != torch.float32:
+        raise TypeError(f"quad_iou: {name} is {t.dtype}, needs float32")
+    if t.dim() != 3 or tuple(t.shape[1:]) != (4, 2):
+        raise ValueError(f"quad_iou: {name} has shape {tuple(t.shape)}, needs (n, 4, 2)")
+    if not t.is_contiguous():
+        raise ValueError(f"quad_iou: {name} is not contiguous")
+
+
+def quad_iou_pairs_cuda(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    global launches
+    _require(q1, "q1")
+    _require(q2, "q2")
+    if q1.shape[0] != q2.shape[0]:
+        raise ValueError(f"quad_iou: {q1.shape[0]} vs {q2.shape[0]} pairs")
+    out = torch.empty(q1.shape[0], dtype=torch.float32, device=q1.device)
+    status = _lib().quad_iou_pairs_launch(
+        q1.data_ptr(), q2.data_ptr(), out.data_ptr(), q1.shape[0],
+        torch.cuda.current_stream(q1.device).cuda_stream,
+    )
+    _build.check(status, "quad_iou_pairs")
+    launches += 1
+    return out
+
+
+def quad_iou_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    global launches
+    _require(a, "a")
+    _require(b, "b")
+    out = torch.empty(a.shape[0], b.shape[0], dtype=torch.float32, device=a.device)
+    status = _lib().quad_iou_matrix_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], b.shape[0],
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _build.check(status, "quad_iou_matrix")
+    launches += 1
+    return out
+
+
+def quad_iou_pairs(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Plain torch ops for CPU tensors, the CUDA kernel otherwise."""
+    if q1.device.type == "cpu":
+        return quad_iou_pairs_plain(q1, q2)
+    return quad_iou_pairs_cuda(q1, q2)
+
+
+def quad_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain torch ops for CPU tensors, the CUDA kernel otherwise."""
+    if a.device.type == "cpu":
+        return quad_iou_matrix_plain(a, b)
+    return quad_iou_matrix_cuda(a, b)

@@ -1,0 +1,167 @@
+"""Weights for the port: the flax checkpoint reader, the flax → torch
+conversion, and seeded random init.
+
+* ``msgpack_restore`` decodes a flax ``.msgpack`` checkpoint with a small
+  MessagePack reader of its own: nil, bool, ints, floats, str, bin, arrays,
+  maps, and the ext types flax writes for arrays (1, an ndarray as
+  ``[shape, dtype name, bytes]``) and numpy scalars (3).
+* ``params_from_jax`` turns a flax variable tree ({"params", "batch_stats"} of
+  nested dicts of numpy arrays) into the port's state dict: conv kernels HWIO
+  → OIHW, Dense kernels transposed, BatchNorm scale/bias/mean/var →
+  weight/bias/running_mean/running_var. The LSTM and decoder parameters keep
+  their flax names and layouts ((in, 4H) kernels, gates i,f,g,o, one folded
+  bias), so the port computes the same sums.
+* ``init_random_`` fills a model from a seeded ``torch.Generator`` (LeCun
+  normal kernels, zero biases, identity BatchNorm) — the full-width models
+  have no trained weights in the repository.
+"""
+
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import Any, Dict, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        out = self.data[self.pos : self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack data")
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self) -> Any:
+        b = self.unpack(">B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        if b in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
+            return bytes(self.take(self.unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b])))
+        if b in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
+            n = self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
+            return self.ext(self.unpack(">b"), bytes(self.take(n)))
+        fixed = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+                 0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if b in fixed:
+            return self.unpack(fixed[b])
+        if b in (0xD4, 0xD5, 0xD6, 0xD7, 0xD8):  # fixext 1..16
+            code = self.unpack(">b")
+            return self.ext(code, bytes(self.take(1 << (b - 0xD4))))
+        if b in (0xD9, 0xDA, 0xDB):  # str 8/16/32
+            n = self.unpack({0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[b])
+            return str(self.take(n), "utf-8")
+        if b in (0xDC, 0xDD):
+            return self.array(self.unpack(">H" if b == 0xDC else ">I"))
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def array(self, n: int):
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> Dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    @staticmethod
+    def ext(code: int, payload: bytes):
+        if code in (1, 3):  # flax ndarray / numpy scalar
+            shape, dtype, buf = _Reader(payload).value()
+            if isinstance(dtype, bytes):
+                dtype = dtype.decode()
+            arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+            return arr[()] if code == 3 else arr
+        raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def msgpack_restore(data: Union[bytes, str, Path]) -> Any:
+    """Decode a flax ``.msgpack`` checkpoint (bytes or a path) into nested
+    dicts of numpy arrays."""
+    if not isinstance(data, (bytes, bytearray)):
+        data = Path(data).read_bytes()
+    reader = _Reader(bytes(data))
+    out = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack object")
+    return out
+
+
+def _walk(tree: Dict, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Flax variables {"params": ..., "batch_stats": ...} → the port's state
+    dict (other top-level keys, such as a checkpoint's itos, are ignored)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _walk(tree.get("params", {})):
+        *mods, leaf = path
+        if leaf == "kernel" and arr.ndim == 4:  # conv HWIO → OIHW
+            leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and arr.ndim == 2:  # Dense (in, out) → (out, in)
+            leaf, arr = "weight", arr.T
+        elif leaf == "scale":  # BatchNorm
+            leaf = "weight"
+        out[".".join(mods + [leaf])] = torch.from_numpy(
+            np.array(arr, dtype=np.float32)
+        )
+    for path, arr in _walk(tree.get("batch_stats", {})):
+        *mods, leaf = path
+        out[".".join(mods + [_BN_STATS[leaf]])] = torch.from_numpy(
+            np.array(arr, dtype=np.float32)
+        )
+    return out
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init in place: LeCun-normal convs, linears and flax-named
+    ``*kernel*`` parameters (std 1/√fan_in), zero biases, BatchNorm as the
+    identity."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for name, t in sorted(model.state_dict().items()):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
+            val = torch.ones(t.shape)
+        elif leaf == "running_mean" or "bias" in leaf:
+            val = torch.zeros(t.shape)
+        else:
+            if leaf == "weight":  # (out, in, ...) torch layout
+                fan_in = int(np.prod(t.shape[1:]))
+            else:  # flax-named (in, out) kernel
+                fan_in = t.shape[0]
+            val = torch.randn(t.shape, generator=gen) / np.sqrt(fan_in)
+        t.copy_(val.to(t.dtype))
+    return model
