@@ -1,13 +1,14 @@
 // Intersection over union of convex quadrilaterals.
 //
 // Replaces the TPU kernel manuscript_tpu/ops/pallas_iou.py:
-// pallas_quad_iou_matrix (body _tile_kernel), and with the pairs entry point
-// the XLA formulation the device NMS calls, manuscript_tpu/ops/lanms_jax.py:
-// quad_iou_pairs. Quad a is clipped (Sutherland–Hodgman) against the four
-// edges of quad b in an 8-slot vertex buffer whose dead slots repeat the last
-// live vertex; the intersection is the shoelace area of what is left when more
-// than two vertices remain, and IoU = inter / (area_a + area_b - inter), or 0
-// when that union is not positive. The semantics kept from _clip_batch:
+// pallas_quad_iou_matrix (body _tile_kernel), and with the pairs and gathered
+// entry points the XLA formulation the device NMS calls,
+// manuscript_tpu/ops/lanms_jax.py: quad_iou_pairs. Quad a is clipped
+// (Sutherland–Hodgman) against the four edges of quad b in an 8-slot vertex
+// buffer whose dead slots repeat the last live vertex; the intersection is
+// the shoelace area of what is left when more than two vertices remain, and
+// IoU = inter / (area_a + area_b - inter), or 0 when that union is not
+// positive. The semantics kept from _clip_batch:
 // "inside" is side >= 0; a crossing emits the _line_intersection point, which
 // is the previous vertex when the lines are parallel (denom == 0); a vertex
 // equal to its predecessor (the wrap from slot 7 to slot 0 included) emits
@@ -24,7 +25,11 @@
 // What the design does about it: one thread per pair, with the clipped
 // polygon in registers (fully unrolled loops over the 8 slots and 4 edges), no
 // shared memory and no synchronisation, so the kernel costs one launch and one
-// pass over the quads.
+// pass over the quads. The gathered entry point, which the NMS calls, reads
+// quads[ia[p]] and quads[ib[p]] itself (no gathered copies beforehand) and
+// clips only the pairs below a live count that it reads on the device (no
+// host sync), writing 0 for the rest; its blocks are one warp each, so 4096
+// to 16384 pairs spread over 128 to 512 blocks, one or more on every SM.
 //
 // Compiled with -fmad=false: torch's plain elementwise ops round every
 // multiply and add on their own, so keeping nvcc from contracting a*b+c into
@@ -144,6 +149,18 @@ __global__ void quad_iou_matrix_kernel(const float* __restrict__ a,
   }
 }
 
+__global__ void quad_iou_gather_kernel(const float* __restrict__ quads,
+                                       const int* __restrict__ ia,
+                                       const int* __restrict__ ib,
+                                       const int* __restrict__ n_live,
+                                       float* __restrict__ out, long long P) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const long long live = n_live ? (long long)*n_live : P;
+  out[p] = p < live ? iou_one(quads + 8 * (long long)ia[p], quads + 8 * (long long)ib[p])
+                    : 0.f;
+}
+
 extern "C" int quad_iou_pairs_launch(const float* q1, const float* q2, float* out,
                                      long long P, void* stream) {
   if (P > 0) {
@@ -162,6 +179,20 @@ extern "C" int quad_iou_matrix_launch(const float* a, const float* b, float* out
     const long long blocks = (N * M + threads - 1) / threads;
     quad_iou_matrix_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         a, b, out, N, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+// n_live: a device int (pairs p < *n_live are clipped, the rest give 0), or
+// NULL for all P pairs.
+extern "C" int quad_iou_gather_launch(const float* quads, const int* ia, const int* ib,
+                                      const int* n_live, float* out, long long P,
+                                      void* stream) {
+  if (P > 0) {
+    const int threads = 32;
+    const long long blocks = (P + threads - 1) / threads;
+    quad_iou_gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        quads, ia, ib, n_live, out, P);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 
 Every step runs ``ops.attention_step.attention_step`` — the hand-written
 CUDA step on the card, its plain twin on the CPU. Greedy runs max_len+1
-steps; beam runs max_len steps over (B, k) beams with the GNMT length
+steps; beam runs max_len steps over (B, k) beams, whose k rows of a word
+share that word's encoder memory (not repeated k times, as the JAX package
+does; the values are the same) with the GNMT length
 penalty ((5+t)^α/6^α), finished beams that only continue with EOS at log-prob
 0, temperature-scaled logits, BLANK masked at −1e4, and the chosen beams'
 logits traced back through the backpointers. Parameters keep the flax names
@@ -53,11 +55,11 @@ class AttentionDecoder(nn.Module):
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
 
-    def _step(self, h, c, enc, proj_enc, tok):
+    def _step(self, h, c, enc, proj_enc, tok, beam=1):
         return attention_step(
             enc, proj_enc, h, c, tok.to(torch.int32).contiguous(),
             self.h2h_kernel, self.h2h_bias, self.score_kernel.reshape(-1),
-            self.lstm_kernel_ih, self.lstm_kernel_hh, self.lstm_bias,
+            self.lstm_kernel_ih, self.lstm_kernel_hh, self.lstm_bias, beam,
         )
 
     def _logits(self, h):
@@ -100,20 +102,20 @@ class AttentionDecoder(nn.Module):
         b = enc.shape[0]
         k, v, hdim = beam_size, self.num_classes, self.hidden_size
         dev = enc.device
-        enc_r, proj_r = self._prepare(enc.repeat_interleave(k, dim=0))
+        enc, proj_enc = self._prepare(enc)  # one row per word, shared by its k beams
         bidx = torch.arange(b, device=dev)[:, None]
 
         tok = torch.full((b, k), self.sos_id, dtype=torch.int64, device=dev)
         scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
         scores[:, 0] = 0.0
-        h = enc_r.new_zeros(b, k, hdim)
-        c = enc_r.new_zeros(b, k, hdim)
+        h = enc.new_zeros(b, k, hdim)
+        c = enc.new_zeros(b, k, hdim)
         finished = torch.zeros(b, k, dtype=torch.bool, device=dev)
         trace = []
         for t in range(max_len):
             h2, c2 = self._step(
-                h.reshape(b * k, hdim), c.reshape(b * k, hdim), enc_r, proj_r,
-                tok.reshape(b * k),
+                h.reshape(b * k, hdim), c.reshape(b * k, hdim), enc, proj_enc,
+                tok.reshape(b * k), beam=k,
             )
             logits = self._logits(h2) / max(temperature, 1e-6)
             log_probs = torch.log_softmax(logits, dim=-1).reshape(b, k, v)

@@ -1,11 +1,15 @@
-"""One TRBA decode step (additive attention + LSTM cell): kernel and plain twin.
+"""One TRBA decode step (additive attention + LSTM cell): kernels and plain twin.
 
 ``attention_step`` is what ``models.attention.AttentionDecoder`` calls once per
-decode step. On CUDA tensors it launches ``csrc/attention_step.cu`` (the
-counterpart of ``manuscript_tpu/ops/pallas_attention.py``); on CPU tensors it
-runs ``attention_step_plain``, the same function in torch ops. There is no
-other route: a tensor on any other device, or a CUDA tensor the kernel does
-not take, raises.
+decode step. The encoder memory ``enc`` (B, T, E) and ``proj_enc`` (B, T, H)
+holds one row per word; the states ``h``, ``c`` and tokens ``tok`` hold
+R = B·beam rows, and row r attends over word r // beam (``beam=1`` is the
+greedy path). On CUDA tensors it launches the three grids of
+``csrc/attention_step.cu`` (the counterpart of
+``manuscript_tpu/ops/pallas_attention.py``): proj_h on the tensor cores, the
+attention, then the gates on the tensor cores. On CPU tensors it runs ``attention_step_plain``, the
+same function in torch ops. There is no other route: a tensor on any other
+device, or a CUDA tensor the kernels do not take, raises.
 """
 
 from __future__ import annotations
@@ -17,15 +21,36 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches, for proof that a run went through the kernel
+launches = 0  # decode steps run through the kernels, for proof of the route
+kernel_launches = 0  # raw kernel launches: three per step (proj_h, attention, gates)
+CLUSTER = 4  # blocks of the attention grid that share one word
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have on Hopper
+
+
+def _check_beam(enc, h, beam: int) -> None:
+    if beam < 1:
+        raise ValueError(f"attention_step: beam={beam} is below 1")
+    rows = h.shape[0]
+    if rows % beam:
+        raise ValueError(f"attention_step: {rows} beam rows are not a multiple of beam={beam}")
+    if rows // beam != enc.shape[0]:
+        raise ValueError(
+            f"attention_step: {rows} beam rows of beam={beam} need {rows // beam} "
+            f"words of encoder memory, got {enc.shape[0]}"
+        )
 
 
 def attention_step_plain(
-    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias
+    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """enc (R,T,E), proj_enc (R,T,H), h/c (R,H), tok (R,) int; w_h2h (H,H),
-    b_h2h (H,), w_score (H,) or (H,1), w_ih (E+V,4H), w_hh (H,4H),
-    bias (4H,) → (h', c'). The token's input is the row ``w_ih[E + tok]``."""
+    """enc (B,T,E), proj_enc (B,T,H), h/c (B·beam,H), tok (B·beam,) int;
+    w_h2h (H,H), b_h2h (H,), w_score (H,) or (H,1), w_ih (E+V,4H), w_hh (H,4H),
+    bias (4H,) → (h', c'). Row r attends over word r // beam; the token's
+    input is the row ``w_ih[E + tok]``."""
+    _check_beam(enc, h, beam)
+    if beam > 1:
+        enc = enc.repeat_interleave(beam, dim=0)
+        proj_enc = proj_enc.repeat_interleave(beam, dim=0)
     e_dim = enc.shape[-1]
     hidden = h.shape[-1]
     proj_h = h @ w_h2h + b_h2h
@@ -46,9 +71,9 @@ def _lib():
     fn = lib.attention_step_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.attention_step_smem_bytes.restype = ctypes.c_int
-        lib.attention_step_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.attention_step_smem_bytes.argtypes = [ctypes.c_int] * 5
     return lib
 
 
@@ -61,17 +86,20 @@ def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32):
         raise ValueError(f"attention_step: {name} has shape {tuple(t.shape)}, needs {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"attention_step: {name} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"attention_step: {name} is not 16-byte aligned")
 
 
 def attention_step_cuda(
-    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias
+    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the fused step kernel on the current stream."""
-    global launches
-    r, t, e_dim = enc.shape
-    hidden = h.shape[-1]
-    _require(enc, "enc", (r, t, e_dim))
-    _require(proj_enc, "proj_enc", (r, t, hidden))
+    """Launch the step's three grids on the current stream."""
+    global launches, kernel_launches
+    _check_beam(enc, h, beam)
+    b, t, e_dim = enc.shape
+    r, hidden = h.shape
+    _require(enc, "enc", (b, t, e_dim))
+    _require(proj_enc, "proj_enc", (b, t, hidden))
     _require(h, "h", (r, hidden))
     _require(c, "c", (r, hidden))
     _require(tok, "tok", (r,), torch.int32)
@@ -83,36 +111,42 @@ def attention_step_cuda(
     _require(w_ih, "w_ih", (w_ih.shape[0], 4 * hidden))
     _require(w_hh, "w_hh", (hidden, 4 * hidden))
     _require(bias, "bias", (4 * hidden,))
-    if hidden % 4 or e_dim % 4:
-        raise ValueError(f"attention_step: H={hidden} and E={e_dim} must be multiples of 4")
-    lib = _lib()
-    if lib.attention_step_smem_bytes(r, t, hidden, e_dim) > 48 * 1024:
+    if hidden % 64 or e_dim % (4 * CLUSTER) or max(hidden, e_dim) > 256 * CLUSTER:
         raise ValueError(
-            f"attention_step: T={t}, H={hidden}, E={e_dim} need more than "
-            "48 KB of shared memory per block"
+            f"attention_step: H={hidden} must be a multiple of 64, E={e_dim} one "
+            f"of {4 * CLUSTER}, and both at most {256 * CLUSTER}"
         )
+    lib = _lib()
+    if lib.attention_step_smem_bytes(beam, t, hidden, e_dim, CLUSTER) > SMEM_LIMIT:
+        raise ValueError(
+            f"attention_step: beam={beam}, T={t}, H={hidden}, E={e_dim} need more "
+            f"than {SMEM_LIMIT} bytes of shared memory per block"
+        )
+    proj_h = torch.empty_like(h)
+    ctx = torch.empty(r, e_dim, dtype=torch.float32, device=h.device)
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     stream = torch.cuda.current_stream(enc.device).cuda_stream
     status = lib.attention_step_launch(
         enc.data_ptr(), proj_enc.data_ptr(), h.data_ptr(), c.data_ptr(),
         tok.data_ptr(), w_h2h.data_ptr(), b_h2h.data_ptr(), w_score.data_ptr(),
-        w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), r, t, hidden, e_dim, stream,
+        w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), proj_h.data_ptr(), ctx.data_ptr(),
+        h_out.data_ptr(), c_out.data_ptr(), b, beam, t, hidden, e_dim, CLUSTER, stream,
     )
     _build.check(status, "attention_step")
     launches += 1
+    kernel_launches += 3
     return h_out, c_out
 
 
 def attention_step(
-    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias
+    enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch ops for CPU tensors, the CUDA kernel otherwise."""
+    """Plain torch ops for CPU tensors, the CUDA kernels otherwise."""
     if enc.device.type == "cpu":
         return attention_step_plain(
-            enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias
+            enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam
         )
     return attention_step_cuda(
-        enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias
+        enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam
     )

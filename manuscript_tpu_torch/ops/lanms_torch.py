@@ -12,21 +12,36 @@
    and kept[i] = valid[i] ∧ ¬∃ j<i: kept[j] ∧ IoU[j,i] > t is iterated until
    it stops changing (at most M sweeps; one host sync per sweep).
 
-Both IoU calls go through ``ops.quad_iou.quad_iou_pairs``.
+Both IoU calls go through ``ops.quad_iou.quad_iou_gather``: one launch each
+on the card, with int32 pair indices and, for the compacted pairs, the live
+count on the device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from .quad_iou import quad_iou_pairs
+from .quad_iou import quad_iou_gather
 
 _IDX = torch.arange(4)
 _ORDERS = torch.cat(
     [(_IDX[None, :] + _IDX[:, None]) % 4, (_IDX[:, None] - _IDX[None, :]) % 4]
 )  # 8 cyclic / reflected vertex orders, forward first
+
+
+_PRED_PAIRS: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _predecessor_pairs(k: int, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 indices (1..k-1, 0..k-2) of each candidate and its predecessor,
+    made once per (k, device)."""
+    pairs = _PRED_PAIRS.get((k, dev))
+    if pairs is None:
+        idx = torch.arange(k, dtype=torch.int32, device=dev)
+        pairs = _PRED_PAIRS[(k, dev)] = (idx[1:], idx[:-1])
+    return pairs
 
 
 def _normalize_quad(ref: torch.Tensor, poly: torch.Tensor) -> torch.Tensor:
@@ -73,12 +88,14 @@ def _standard_nms(out_p, out_s, merged_valid, iou_threshold: float):
     flat = cand.reshape(-1)
     slot = torch.cumsum(flat.to(torch.int64), 0) - 1
     within = flat & (slot < pair_cap)
-    pair_idx = torch.zeros(pair_cap + 1, dtype=torch.int64, device=dev)
-    pair_idx[torch.where(within, slot, pair_cap)] = torch.arange(m * m, device=dev)
+    pair_idx = torch.zeros(pair_cap + 1, dtype=torch.int32, device=dev)
+    pair_idx[torch.where(within, slot, pair_cap)] = torch.arange(
+        m * m, dtype=torch.int32, device=dev
+    )
     pair_idx = pair_idx[:pair_cap]
-    pi, pj = pair_idx // m, pair_idx % m
-    live_pair = torch.arange(pair_cap, device=dev) < within.sum()
-    exact = quad_iou_pairs(quads[pi].contiguous(), quads[pj].contiguous())
+    n_live = within.sum(dtype=torch.int32)
+    live_pair = torch.arange(pair_cap, device=dev) < n_live
+    exact = quad_iou_gather(quads, pair_idx // m, pair_idx % m, n_live)
     supp_pair = live_pair & (exact > iou_threshold)
 
     suppressor = torch.zeros(m * m + 1, dtype=torch.bool, device=dev)
@@ -121,7 +138,7 @@ def locality_aware_nms_parallel(
     prev = torch.cat([quads[:1], quads[:-1]], dim=0)
     aligned = _normalize_quad(prev, quads)
 
-    iou_prev = quad_iou_pairs(quads[1:].contiguous(), quads[:-1].contiguous())
+    iou_prev = quad_iou_gather(quads, *_predecessor_pairs(k, dev))
     same = val[1:] & val[:-1] & (iou_prev > iou_threshold)
     brk = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ~same])
     seg = torch.cumsum(brk.to(torch.int64), 0) - 1

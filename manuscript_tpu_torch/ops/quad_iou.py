@@ -1,8 +1,10 @@
 """IoU of convex quads: kernel and plain twin.
 
-``quad_iou_pairs`` (IoU of q1[p] with q2[p]) is what the device LANMS calls;
-``quad_iou_matrix`` (all pairs of two sets) is the counterpart of the TPU
-kernel's matrix layout. On CUDA tensors both launch ``csrc/quad_iou.cu``
+``quad_iou_gather`` (IoU of quads[ia[p]] with quads[ib[p]] for the pairs
+below a live count, 0 past it) is what the device LANMS calls;
+``quad_iou_pairs`` (IoU of q1[p] with q2[p]) is the same clip on paired
+inputs, and ``quad_iou_matrix`` (all pairs of two sets) the counterpart of the
+TPU kernel's matrix layout. On CUDA tensors all three launch ``csrc/quad_iou.cu``
 (the counterpart of ``manuscript_tpu/ops/pallas_iou.py``); on CPU tensors
 they run the plain torch version below, which is the same Sutherland–Hodgman
 clip as ``manuscript_tpu/ops/lanms_jax.quad_iou_pairs``. Any other device,
@@ -18,7 +20,7 @@ import torch
 from . import _build
 
 SLOTS = 8  # most vertices quad ∩ quad can have under S-H clipping
-launches = 0  # kernel launches (pairs and matrix), for proof of the route
+launches = 0  # kernel launches (gather, pairs and matrix), for proof of the route
 
 
 def _clip(polys, counts, a, b):
@@ -92,14 +94,26 @@ def quad_iou_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ).reshape(n, m)
 
 
+def quad_iou_gather_plain(quads, ia, ib, n_live=None) -> torch.Tensor:
+    """IoU of quads[ia[p]] with quads[ib[p]]: quads (M, 4, 2), ia/ib (P,)
+    int → (P,), 0 for p ≥ n_live (a 0-d int tensor; None for all P)."""
+    iou = quad_iou_pairs_plain(quads[ia.long()], quads[ib.long()])
+    if n_live is None:
+        return iou
+    live = torch.arange(ia.shape[0], device=ia.device) < n_live
+    return torch.where(live, iou, torch.zeros_like(iou))
+
+
 def _lib():
     lib = _build.library("quad_iou")
     if lib.quad_iou_pairs_launch.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.quad_iou_pairs_launch.argtypes = [ptr, ptr, ptr, i64, ptr]
         lib.quad_iou_matrix_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
+        lib.quad_iou_gather_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
         lib.quad_iou_pairs_launch.restype = ctypes.c_int
         lib.quad_iou_matrix_launch.restype = ctypes.c_int
+        lib.quad_iou_gather_launch.restype = ctypes.c_int
     return lib
 
 
@@ -142,6 +156,47 @@ def quad_iou_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check(status, "quad_iou_matrix")
     launches += 1
     return out
+
+
+def quad_iou_gather_cuda(quads, ia, ib, n_live=None) -> torch.Tensor:
+    """One launch: the pairs are gathered by the kernel and only those below
+    ``n_live`` (read on the device, no host sync) are clipped. Indices must
+    lie in [0, M); the kernel does not check them."""
+    global launches
+    _require(quads, "quads")
+    for name, idx in (("ia", ia), ("ib", ib)):
+        if idx.device != quads.device:
+            raise ValueError(f"quad_iou: {name} is on {idx.device}, not {quads.device}")
+        if idx.dtype != torch.int32:
+            raise TypeError(f"quad_iou: {name} is {idx.dtype}, needs int32")
+        if idx.dim() != 1 or not idx.is_contiguous():
+            raise ValueError(f"quad_iou: {name} must be a contiguous vector")
+    if ia.shape != ib.shape:
+        raise ValueError(f"quad_iou: {ia.shape[0]} vs {ib.shape[0]} indices")
+    if n_live is not None:
+        if n_live.device != quads.device:
+            raise ValueError(f"quad_iou: n_live is on {n_live.device}, not {quads.device}")
+        if n_live.dtype != torch.int32 or n_live.dim() != 0:
+            raise TypeError(
+                f"quad_iou: n_live must be a 0-d int32 tensor, got {n_live.dtype} "
+                f"{tuple(n_live.shape)}"
+            )
+    out = torch.empty(ia.shape[0], dtype=torch.float32, device=quads.device)
+    status = _lib().quad_iou_gather_launch(
+        quads.data_ptr(), ia.data_ptr(), ib.data_ptr(),
+        None if n_live is None else n_live.data_ptr(), out.data_ptr(), ia.shape[0],
+        torch.cuda.current_stream(quads.device).cuda_stream,
+    )
+    _build.check(status, "quad_iou_gather")
+    launches += 1
+    return out
+
+
+def quad_iou_gather(quads, ia, ib, n_live=None) -> torch.Tensor:
+    """Plain torch ops for CPU tensors, the CUDA kernel otherwise."""
+    if quads.device.type == "cpu":
+        return quad_iou_gather_plain(quads, ia, ib, n_live)
+    return quad_iou_gather_cuda(quads, ia, ib, n_live)
 
 
 def quad_iou_pairs(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
