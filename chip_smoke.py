@@ -8,12 +8,13 @@ run with a traceback and a non-zero exit:
 
 1. build the CUDA kernels of manuscript_tpu_torch/csrc with nvcc
    (into build/kernels/) and print the build seconds;
-2. hold each kernel against its plain torch version at the main path's
+2. hold each kernel against its plain torch version at the main paths'
    shapes, and time both (CUDA events over a CUDA graph of repeated calls,
-   median of several replays, after warm-up): K1 at R = 256..2048 beam rows
-   (beam 8), K2's gathered entry at the NMS's sizes beside the same call
-   made of torch gathers and the pairs kernel, and the matrix entry at
-   1024×1024;
+   median of several replays, after warm-up): K1 at R = 256..4096 beam rows
+   (beam 8; 8·nw for one page, 8·B·nw for a chunk of B pages), K2's gathered
+   entry at the NMS's sizes for one page and for a chunk of 4 pages (per-page
+   live counts) beside the same call made of torch gathers and the pairs
+   kernel, and the matrix entry at 1024×1024;
 3. full width with random weights from a seed: EAST resnet50 at 1280² (q=2,
    8192 candidates, 1024 boxes, bf16) and TRBA full (64×256, hidden 256,
    194 tokens, beam 8, max_len 25) through ``Pipeline.predict`` on 3 pages,
@@ -22,12 +23,32 @@ run with a traceback and a non-zero exit:
    the recognizer on a fixed 32-crop strip (256 beam rows);
 4. the committed micro checkpoints (manuscript_tpu/configs/quality/) on one
    synthetic page, on the card and on the CPU: equal texts, boxes within
-   1e-2 px.
+   1e-2 px;
+5. phase 3's configuration on 8 pages through ``Pipeline.process_batch``
+   (4 pages a chunk) and through a loop of ``predict``: pages/s of both,
+   host-clock seconds per stage per chunk, each chunk's slots, the launch
+   counts around exactly the ``process_batch`` call (25 K1 steps and at
+   least 2 K2 launches per chunk); one chunk's batched phase A and phase B
+   against the same inputs page by page (equal valid rows, boxes within
+   1e-2 px; equal texts with TF32 off, but for beam ties); the same 8 pages with device crops
+   and with ``crop_scale=2`` at 128 slots a page (pages/s, peak memory,
+   launch counts, finite boxes and confidences); and ``process_batch`` on
+   16 pages with one CUDA stream (the port) against phase B on a second
+   stream, with the card's idle share from a torch.profiler trace of each;
+6. the micro checkpoints with TF32 off: ``process_batch`` on 5 held-out
+   pages equals a loop of ``predict`` on the card for native and device
+   crops (equal texts, boxes within 1e-2 px), and ``calibrate`` gives the
+   same threshold and counts on the card as on the CPU;
+7. ``evaluate_quality`` (8 held-out pages, seed 9000, beam) on the card with
+   native crops, device crops and ``crop_scale=2`` against the JAX
+   package's CPU numbers in ``manuscript_tpu_torch/configs/
+   quality_reference.json``: ``detector_f1`` equal to 3 decimals,
+   ``e2e_cer`` within 0.005.
 
 It prints the card's name and power limit, one JSON line with a row per
-kernel, and last the line ``{"ok": true, "device": {...}}``. Without a CUDA
-card, or without the rest of the repository beside it, it exits non-zero
-and prints no result.
+kernel (launches from phase 5), and last the line ``{"ok": true, "device":
+{...}}``. Without a CUDA card, or without the rest of the repository beside
+it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -142,6 +163,330 @@ def synthetic_page(rng, h: int = 1200, w: int = 1600, n_words: int = 60) -> np.n
     return page
 
 
+def device_trace(torch, fn) -> dict:
+    """One ``fn()`` under torch.profiler. From the trace's kernels and copies:
+    the card's busy seconds (all streams merged), its idle share of the
+    call's host-clock seconds, and the seconds in which two streams ran at
+    once; empty when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = ROOT / "build" / "trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    spans = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+    path.unlink()
+    if not spans:
+        return {}
+
+    def union_us(iv):
+        busy, (start, end) = 0.0, sorted(iv)[0]
+        for a, b in sorted(iv)[1:]:
+            if a > end:
+                busy, start, end = busy + end - start, a, b
+            else:
+                end = max(end, b)
+        return busy + end - start
+
+    busy = union_us([iv for ivs in spans.values() for iv in ivs]) / 1e6
+    both = sum(union_us(ivs) for ivs in spans.values()) / 1e6 - busy
+    return {"wall": wall, "busy": busy, "idle": 1.0 - busy / wall, "streams": len(spans),
+            "two_at_once": both}
+
+
+def words_of(page) -> list:
+    return [w for blk in page.blocks for w in blk.words]
+
+
+def check_finite(words) -> None:
+    for w_ in words:
+        check(np.all(np.isfinite(w_.polygon)) and np.isfinite(w_.detection_confidence), w_)
+        check(w_.recognition_confidence is None or np.isfinite(w_.recognition_confidence), w_)
+
+
+def many_pages(torch, det, rec, rng, k1, k2):
+    """Phase 5: 8 full-width pages through ``process_batch`` (4 a chunk) and
+    through a loop of ``predict``, with the launch counts around exactly the
+    ``process_batch`` call; then the exact checks of one chunk's batched
+    phases, the device-crop paths, and one CUDA stream against two."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+
+    pipe = Pipeline(det, rec, beam_size=8, batch_pages=4)
+    pages = [synthetic_page(rng) for _ in range(8)]
+    pipe.process_batch(pages[:4])  # warm-up: cuDNN plans at 4 pages, capacity
+    pipe.predict(pages[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.kernel_launches = k2.launches = 0
+    t0 = time.perf_counter()
+    batch = pipe.process_batch(pages)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = [dict(c) for c in pipe._fused.chunk_timings]
+    t0 = time.perf_counter()
+    loop = [pipe.predict(p) for p in pages]
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    print(f"process_batch: {len(pages)} pages in {t_batch:.4f} s = {len(pages) / t_batch:.4f} "
+          f"pages/s, peak memory allocated {peak:.3f} GiB; predict loop: {t_loop:.4f} s = "
+          f"{len(pages) / t_loop:.4f} pages/s")
+    print("stage seconds per chunk (host clock; detect and recognize are launches, crops "
+          "and finish include the waits): "
+          + str([{k: round(v, 4) if isinstance(v, float) else v for k, v in c.items()}
+                 for c in chunks]))
+    print(f"slots per chunk (nw): {[c['slots'] for c in chunks]}, so K1 ran at R = 8·B·nw = "
+          f"{[8 * c['pages'] * c['slots'] for c in chunks]} beam rows; launches {launches} "
+          f"({k1.kernel_launches} K1 kernel launches) on {len(chunks)} chunks")
+    check(len(chunks) == 2 and all(c["pages"] == 4 for c in chunks), chunks)
+    # one 25-step beam decode per chunk, both NMS calls of each chunk's phase A
+    check(launches["attention_step"] == 25 * len(chunks), launches)
+    check(launches["quad_iou"] >= 2 * len(chunks), launches)
+    words = [words_of(p) for p in batch]
+    ref = [words_of(p) for p in loop]
+    for ws in words:
+        check_finite(ws)
+    same = sum(len(a) == len(b) and [w.text for w in a] == [w.text for w in b]
+               for a, b in zip(words, ref))
+    # each box's distance to the nearest box of the other page (reading
+    # order may differ when boxes move)
+    box_d = [round(float(np.abs(np.subtract(np.array([w.polygon for w in a])[:, None],
+                                            np.array([w.polygon for w in b])[None]))
+                         .max(axis=(2, 3)).min(axis=1).max()), 4)
+             for a, b in zip(words, ref) if len(a) == len(b) and a]
+    print(f"boxes per page {[len(ws) for ws in words]} (predict loop {[len(ws) for ws in ref]}); "
+          f"pages with the same words and texts as the loop: {same} of {len(pages)}; max box "
+          f"|d| px on the pages with equal counts {box_d}")
+    # where the two differ: EAST's bf16 score maps for 4 pages at once
+    # against one page at a time, and the cells that cross the threshold
+    with torch.inference_mode():
+        x = torch.from_numpy(np.stack([detector_preprocess_host(p, det.target_size)
+                                       for p in pages[:4]])).to(det.device)
+        x = (x.to(det.dtype) / 255.0 - 0.5) / 0.5
+        s4 = det.model(x)["score"].float()
+        s1 = torch.cat([det.model(x[i : i + 1])["score"].float() for i in range(4)])
+    flips = int(((s4 > det.score_thresh) != (s1 > det.score_thresh)).sum())
+    print(f"EAST score maps ({det.dtype}), 4 pages at once vs one at a time: max |d| "
+          f"{(s4 - s1).abs().max().item():.3e}; cells on the other side of the threshold "
+          f"{flips} of {s4.numel()}")
+    chunk_equals_pages(torch, pipe._fused, pages[:4], k1, k2)
+    device_crop_pages(torch, det, rec, pages, k1, k2)
+    one_stream_or_two(torch, pipe, pages + [synthetic_page(rng) for _ in range(8)])
+    return launches, chunks
+
+
+def chunk_equals_pages(torch, fused, pages, k1, k2) -> None:
+    """One chunk at full width, batched against page by page on the same
+    inputs: decode → NMS → postprocess on the chunk's EAST maps against each
+    page's maps alone (the same valid rows, boxes within 1e-2 px), and phase
+    B on the chunk's strip against each page's slots alone, TF32 off (the
+    same texts but for ties of equal score, confidences within 1e-4)."""
+    from manuscript_tpu_torch.fused import _Pending
+
+    det, rec = fused.detector, fused.recognizer
+    imgs, host, _, sx, sy, timings = fused._prepare_chunk(pages)
+    b = len(pages)
+    with torch.inference_mode():
+        x = fused._upload(host)
+        out = det.model((x.to(det.dtype) / 255.0 - 0.5) / 0.5)
+        score, geo = out["score"][..., 0], out["geometry"]
+        sx_d, sy_d = torch.from_numpy(sx).to(x.device), torch.from_numpy(sy).to(x.device)
+        k2.launches = 0
+        chunk = fused._boxes(score, geo, det.score_thresh, sx_d, sy_d)
+        k2_chunk = k2.launches
+        single = torch.cat([
+            fused._boxes(score[i : i + 1], geo[i : i + 1], det.score_thresh,
+                         sx_d[i : i + 1], sy_d[i : i + 1])
+            for i in range(b)
+        ])
+    valid = chunk[..., 8] >= 0
+    check(torch.equal(valid, single[..., 8] >= 0), "valid rows, chunk vs pages")
+    box_d = (chunk - single)[valid].abs().max().item()
+    bit_rows = int((chunk != single)[valid].any(-1).sum())
+    print(f"phase A, one chunk of {b} pages vs page by page on the same EAST maps: valid rows "
+          f"{valid.sum(1).tolist()} equal; max |d| {box_d:.3e} over boxes and scores, rows not "
+          f"bit-equal {bit_rows} of {int(valid.sum())}; K2 launches for the chunk {k2_chunk}")
+    check(box_d <= 1e-2, box_d)
+    check(k2_chunk >= 2, k2_chunk)
+
+    strip, nw = fused._crop_stage(imgs, _Pending(chunk), timings)[3:5]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    args = (fused.mode, fused.beam_size, fused.alpha, fused.temperature)
+    with torch.inference_mode():
+        xs = fused._upload(strip).reshape(-1, rec.img_h, rec.img_w, 3)
+        k1.launches = 0
+        p_all, c_all = rec.recognize_tensor(xs, *args)
+        k1_chunk = k1.launches
+        per = [rec.recognize_tensor(xs[i * nw : (i + 1) * nw], *args) for i in range(b)]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    p_one, c_one = torch.cat([p for p, _ in per]).cpu(), torch.cat([c for _, c in per])
+    p_all = p_all.cpu()
+    other = torch.nonzero((p_all != p_one).any(-1)).flatten().tolist()
+    texts = [(rec.decode(p_all[i].tolist()), rec.decode(p_one[i].tolist())) for i in other]
+    conf_d = (c_all - c_one).abs().max().item()
+    print(f"phase B on the chunk's strip ({b} × {nw} slots, R = {8 * b * nw}) vs page by page, "
+          f"TF32 off: slots with other token ids {len(other)} of {p_all.shape[0]} "
+          f"{[(p_all[i].tolist(), p_one[i].tolist()) for i in other[:2]]}, their texts "
+          f"(chunk, page) {texts}; max |d| of the confidences {conf_d:.3e}; K1 steps for the "
+          f"chunk {k1_chunk}")
+    check(k1_chunk == 25, k1_chunk)
+    # float sums in another order (cuDNN and cuBLAS pick their kernels by
+    # batch) may swap two beam hypotheses of equal score: a slot may read
+    # otherwise only when both confidences agree within 1e-6, and on at most
+    # 1 % of the slots; every other slot's text is equal
+    swapped = [i for i, (a, b_) in zip(other, texts) if a != b_]
+    check(len(swapped) <= p_all.shape[0] // 100, swapped)
+    check(all(abs(c_all[i].item() - c_one[i].item()) <= 1e-6 for i in swapped), swapped)
+    check(conf_d <= 1e-4, conf_d)
+
+
+def device_crop_pages(torch, det, rec, pages, k1, k2) -> None:
+    """The 8 full-width pages through ``process_batch`` with crops gathered
+    on the card from the detector's copy and from a 2× copy, at 128 word
+    slots a page (K1 at R = 4096 on those crops), with the launch counts
+    around exactly each call."""
+    from manuscript_tpu_torch import Pipeline
+
+    for name, kw in (("crop_source=device", {"crop_source": "device"}),
+                     ("crop_scale=2", {"crop_scale": 2})):
+        pipe = Pipeline(det, rec, beam_size=8, batch_pages=4, max_words=128, **kw)
+        pipe.process_batch(pages[:4])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k1.kernel_launches = k2.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.process_batch(pages)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        chunks = pipe._fused.chunk_timings
+        words = [words_of(p) for p in out]
+        print(f"{name}: {len(pages)} pages in {dt:.4f} s = {len(pages) / dt:.4f} pages/s, peak "
+              f"memory allocated {peak:.3f} GiB; launches {launches}; boxes per page "
+              f"{[len(ws) for ws in words]}, recognized "
+              f"{[sum(w.text is not None for w in ws) for ws in words]}; stage seconds per "
+              "chunk " + str([{k: round(v, 4) if isinstance(v, float) else v
+                               for k, v in c.items()} for c in chunks]))
+        check(len(chunks) == 2 and all(c["pages"] == 4 and c["slots"] == 128 for c in chunks),
+              chunks)
+        check(launches["attention_step"] == 25 * len(chunks), launches)
+        check(launches["quad_iou"] >= 2 * len(chunks), launches)
+        check(all(len(ws) > 0 for ws in words), [len(ws) for ws in words])
+        check(sum(w.text is not None for ws in words for w in ws) > 0, name)
+        for ws in words:
+            check_finite(ws)
+
+
+def one_stream_or_two(torch, pipe, pages) -> None:
+    """The port enqueues both phases on one CUDA stream. Against it, the same
+    ``process_batch`` with each phase-B launch moved to a second stream here,
+    so that chunk i+1's phase A (and its NMS syncs) need not wait behind
+    chunk i's phase B: pages/s on 16 pages (4 chunks) in the order one, two,
+    two, one, each chunk's phase-A launch seconds, and from one profiled call
+    of each the card's idle share and the seconds two streams ran at once."""
+    fused = pipe._fused
+    side = torch.cuda.Stream()
+    launch_b = fused._dispatch_rec_chunk
+
+    def on_side(crop_res):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            return launch_b(crop_res)
+
+    def run(streams, profiled=False):
+        if streams == 2:
+            fused._dispatch_rec_chunk = on_side
+        t0 = time.perf_counter()
+        trace = device_trace(torch, lambda: pipe.process_batch(pages)) if profiled else None
+        if not profiled:
+            pipe.process_batch(pages)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if streams == 2:
+            del fused._dispatch_rec_chunk
+        return dt, [round(c["detect"], 4) for c in fused.chunk_timings], trace
+
+    rates = {1: [], 2: []}
+    for streams in (1, 2, 2, 1):
+        dt, detect, _ = run(streams)
+        rates[streams].append(len(pages) / dt)
+        print(f"{streams} stream(s): {len(pages)} pages {len(pages) / dt:.4f} pages/s; phase-A "
+              f"launch seconds per chunk {detect}")
+    for streams in (1, 2):
+        _, _, tr = run(streams, profiled=True)
+        if not tr:
+            print(f"{streams} stream(s), profiled: not measured (no device activity in the trace)")
+            continue
+        print(f"{streams} stream(s), profiled: device idle share {tr['idle']:.4f} (busy "
+              f"{tr['busy']:.4f} s of {tr['wall']:.4f} s, {tr['streams']} streams), seconds in "
+              f"which two streams ran at once {tr['two_at_once']:.4f}")
+    print(f"pages/s, mean of two: one stream {statistics.mean(rates[1]):.4f}, phase B on a "
+          f"second stream {statistics.mean(rates[2]):.4f}")
+
+
+def micro_batches(torch) -> None:
+    """Phase 6: the micro checkpoints, TF32 off: ``process_batch`` on 5
+    held-out pages equals a loop of ``predict`` on the card for both crop
+    sources; ``calibrate`` gives the same threshold and counts on the card as
+    on the CPU."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.fused import FusedOCR
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    pages = [p for p, _ in eval_pages(5, seed=9100)]
+    for src in ("native", "device"):
+        pipe = Pipeline(*load_quality_models("cuda"), max_words=32, crop_source=src)
+        batch = [[w for blk in p.blocks for w in blk.words] for p in pipe.process_batch(pages)]
+        chunks = [c["pages"] for c in pipe._fused.chunk_timings]
+        loop = [[w for blk in pipe.predict(p).blocks for w in blk.words] for p in pages]
+        check([len(ws) for ws in batch] == [len(ws) for ws in loop], (src, batch, loop))
+        box_err = max(np.abs(np.subtract(a.polygon, b.polygon)).max()
+                      for ws, wr in zip(batch, loop) for a, b in zip(ws, wr))
+        texts = [[w.text for w in ws] for ws in batch]
+        print(f"{src} crops: pages per chunk {chunks}, words per "
+              f"page {[len(ws) for ws in batch]}, max box |d| process_batch vs predict "
+              f"{box_err:.3e} px; first page's texts {texts[0]}")
+        check(texts == [[w.text for w in ws] for ws in loop], (src, texts))
+        check(box_err <= 1e-2, box_err)
+    cal = {dev: FusedOCR(*load_quality_models(dev), max_words="auto").calibrate(pages[0])
+           for dev in ("cuda", "cpu")}
+    print(f"calibrate on the card: {cal['cuda']}; on the CPU: {cal['cpu']}")
+    check(cal["cuda"] == cal["cpu"], cal)
+
+
+def quality_on_card() -> None:
+    """Phase 7: ``evaluate_quality`` (8 held-out pages, seed 9000, beam) with
+    native crops, device crops and ``crop_scale=2`` against the JAX
+    package's CPU numbers in ``configs/quality_reference.json``."""
+    from manuscript_tpu_torch.utils.quality import evaluate_quality
+
+    ref = json.loads((ROOT / "manuscript_tpu_torch" / "configs" / "quality_reference.json").read_text())
+    for name, kw in (("native", {}), ("device", {"crop_source": "device"}),
+                     ("crop_scale_2", {"crop_scale": 2})):
+        t0 = time.perf_counter()
+        got = evaluate_quality(**ref["args"], **kw, device="cuda")
+        print(f"{name}: detector_f1 {got['detector_f1']:.5f} (JAX CPU "
+              f"{ref[name]['detector_f1']:.5f}), e2e_cer {got['e2e_cer']:.5f} (JAX CPU "
+              f"{ref[name]['e2e_cer']:.5f}), word_acc {got['word_acc']:.5f}; "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(round(got["detector_f1"], 3) == round(ref[name]["detector_f1"], 3), (name, got))
+        check(abs(got["e2e_cer"] - ref[name]["e2e_cer"]) <= 0.005, (name, got))
+
+
 def main() -> int:
     import torch
 
@@ -152,7 +497,7 @@ def main() -> int:
     from manuscript_tpu_torch import EAST, TRBA, Pipeline
     from manuscript_tpu_torch.ops import _build, attention_step as k1, quad_iou as k2
     from manuscript_tpu_torch.ops.image import detector_preprocess_host
-    from manuscript_tpu_torch.ops.lanms_torch import locality_aware_nms_parallel
+    from manuscript_tpu_torch.ops.lanms_torch import _predecessor_pairs, locality_aware_nms_parallel
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,14 +517,16 @@ def main() -> int:
     print(smi)
     T, H, E, V, K = 32, 256, 256, 194, 8
     rn = lambda *s, sc=1.0: (torch.randn(*s, generator=gen) * sc).to(dev)
-    r_max = 2048
+    r_max = 4096
     enc, proj = rn(r_max // K, T, E), rn(r_max // K, T, H)  # one row per word
     h, c = rn(r_max, H, sc=0.5), rn(r_max, H, sc=0.5)  # one row per beam
     tok = torch.randint(0, V, (r_max,), generator=gen, dtype=torch.int32).to(dev)
     w = (rn(H, H, sc=H**-0.5), rn(H, sc=0.1), rn(H, sc=H**-0.5),
          rn(E + V, 4 * H, sc=E**-0.5), rn(H, 4 * H, sc=H**-0.5), rn(4 * H, sc=0.1))
     k1_err, k1_rows = 0.0, {}
-    for rows in (256, 512, 1024, 2048):  # R = 8·nw for nw = 32, 64, 128, 256
+    # R = 8·nw for nw = 32 .. 256 slots of one page, and 8·B·nw for a chunk of
+    # B pages (2048 and 4096 for 4 pages of 64 and 128 slots)
+    for rows in (256, 512, 1024, 2048, 4096):
         words = rows // K
         a_ = (enc[:words], proj[:words], h[:rows], c[:rows], tok[:rows], *w)
         hk, ck = k1.attention_step_cuda(*a_, beam=K)
@@ -229,6 +576,20 @@ def main() -> int:
                       torch.tensor(cap // 10, dtype=torch.int32, device=dev),
                       lambda qs=qs, pi=pi, pj=pj: k2.quad_iou_pairs_cuda(
                           qs[pi].contiguous(), qs[pj].contiguous())))
+    # a chunk of 4 pages: the predecessor call over 4 × 8192 candidates, and
+    # 4 pages of 16·256 compacted slots with per-page live counts (one page
+    # full, one empty)
+    quads4 = torch.cat([quads, quads + 2000.0])
+    pa4, pb4 = _predecessor_pairs(4, m_all, dev)
+    cases.append(("pred4", 4 * (m_all - 1), quads4, pa4, pb4, None,
+                  lambda: k2.quad_iou_pairs_cuda(quads4[pa4.long()], quads4[pb4.long()])))
+    j = torch.from_numpy(rng.integers(0, 128, 4 * 4096).astype(np.int32)).to(dev)
+    base = torch.arange(4, dtype=torch.int32, device=dev).repeat_interleave(4096) * 256
+    ia4, ib4 = base + 2 * j, base + 2 * j + 1
+    qs4 = quads[: 4 * 256]
+    live4 = torch.tensor([409, 4096, 0, 1500], dtype=torch.int32, device=dev)
+    cases.append(("pages4", 4 * 4096, qs4, ia4, ib4, live4,
+                  lambda: k2.quad_iou_pairs_cuda(qs4[ia4.long()], qs4[ib4.long()])))
     for name, pairs, qs, ia, ib, n_live, copy_form in cases:
         ik = k2.quad_iou_gather_cuda(qs, ia, ib, n_live)
         ip = k2.quad_iou_gather_plain(qs, ia, ib, n_live)
@@ -238,15 +599,15 @@ def main() -> int:
         err = max((ik - ip).abs().max().item(), (ik1 - ip1).abs().max().item())
         check(err <= 2e-5, err)
         k2_err = max(k2_err, err)
-        live = pairs if n_live is None else int(n_live)
-        nbytes = qs.numel() * 4 + pairs * (4 + 4 + 4) + (0 if n_live is None else 4)
+        live = pairs if n_live is None else int(n_live.sum())
+        nbytes = qs.numel() * 4 + pairs * (4 + 4 + 4) + (0 if n_live is None else 4 * n_live.numel())
         k2_rows[name] = (graph_time_ms(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
                          graph_time_ms(torch, lambda: k2.quad_iou_gather_plain(qs, ia, ib, n_live)),
                          *bound(nbytes, live * 860), graph_time_ms(torch, copy_form))
         k2_ops[name] = (device_ops(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
                         device_ops(torch, copy_form))
         print(f"K2 quad_iou_gather {name}: P={pairs} pairs of {qs.shape[0]} quads, {live} live: "
-              f"max|d| = {err:.3e}; IoU>0 share {(ip[:live] > 0).float().mean().item():.3f}; "
+              f"max|d| = {err:.3e}; IoU>0 share {(ip[ip != 0].numel() / max(live, 1)):.3f}; "
               "ms {:.4f} plain_ms {:.4f} bound_ms {:.4f} ({}); as gathers "
               "(torch gathers + quad_iou_pairs) ms {:.4f}".format(*k2_rows[name])
               + f"; device ops per call {k2_ops[name][0]} vs as gathers {k2_ops[name][1]}")
@@ -299,7 +660,7 @@ def main() -> int:
         stages.append({k: round(v, 4) for k, v in pipe._fused.last_timings.items()})
     launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
     slots = [int(st["slots"]) for st in stages]
-    words = [w for p in results for blk in p.blocks for w in blk.words]
+    words = [w for p in results for w in words_of(p)]
     n_text = sum(w.text is not None for w in words)
     print(f"page latency s: {[round(x, 4) for x in latencies]} "
           f"(mean {statistics.mean(latencies):.4f}); boxes {len(words)}, "
@@ -314,9 +675,7 @@ def main() -> int:
     # when the word capacity grows and phase A runs again)
     check(launches["attention_step"] == 25 * len(latencies), launches)
     check(launches["quad_iou"] >= 2 * len(latencies), launches)
-    for w_ in words:
-        check(np.all(np.isfinite(w_.polygon)) and np.isfinite(w_.detection_confidence), w_)
-        check(w_.recognition_confidence is None or np.isfinite(w_.recognition_confidence), w_)
+    check_finite(words)
 
     strip = np.stack([
         np.full((64, 256, 3), int(v), np.uint8) for v in rng.integers(0, 256, 32)
@@ -356,25 +715,43 @@ def main() -> int:
     check(texts == [w.text for w in cw], [w.text for w in cw])
     check(box_err <= 1e-2, box_err)
 
+    # ---- 5. many pages, full width -------------------------------------------
+    phase("5 many pages, full width, random weights")
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as phase 3 ran
+    batch_launches, chunks = many_pages(torch, det, rec, rng, k1, k2)
+
+    # ---- 6. micro checkpoints: process_batch against predict on the card ------
+    phase("6 micro checkpoints, process_batch vs predict and calibrate, card vs CPU")
+    torch.backends.cudnn.allow_tf32 = False
+    micro_batches(torch)
+
+    # ---- 7. the quality harness on the card -------------------------------------
+    phase("7 quality harness on the card")
+    quality_on_card()
+
     # ---- result ---------------------------------------------------------------
     print(smi)
-    # K1's row at the beam-row count the pages ran (the largest), K2's at the
-    # predecessor call, the larger of the two NMS calls
-    r_page = min((r for r in k1_rows if r >= 8 * max(slots)), default=max(k1_rows))
-    k1_ms, k1_plain_ms, k1_bound, k1_by, _ = k1_rows[r_page]
-    k2_ms, k2_plain_ms, k2_bound, k2_by, _ = k2_rows["pred"]
-    print(f"kernel rows: K1 at R={r_page}, K2 gathered at 8191 predecessor pairs")
+    # the rows of the batched path: K1 at its largest beam-row count (8·B·nw
+    # of the densest chunk), K2 at the chunk's predecessor call, the larger
+    # of its two NMS calls
+    r_batch = 8 * max(c["pages"] * c["slots"] for c in chunks)
+    r_row = min((r for r in k1_rows if r >= r_batch), default=max(k1_rows))
+    k1_ms, k1_plain_ms, k1_bound, k1_by, _ = k1_rows[r_row]
+    k2_ms, k2_plain_ms, k2_bound, k2_by, _ = k2_rows["pred4"]
+    print(f"kernel rows: launches of process_batch on 8 pages (phase 5; Pipeline.predict "
+          f"on 3 pages in phase 3: {launches}); K1 at R={r_row}, K2 gathered at "
+          f"4 × 8191 predecessor pairs")
     rows = [
         {"name": "attention_step", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/attention_step.cu",
          "replaces": "manuscript_tpu/ops/pallas_attention.py:116",
-         "launches": launches["attention_step"], "max_abs_err": k1_err,
+         "launches": batch_launches["attention_step"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "quad_iou", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/quad_iou.cu",
          "replaces": "manuscript_tpu/ops/pallas_iou.py:136",
-         "launches": launches["quad_iou"], "max_abs_err": max(k2_err, k2m_err),
+         "launches": batch_launches["quad_iou"], "max_abs_err": max(k2_err, k2m_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
     ]

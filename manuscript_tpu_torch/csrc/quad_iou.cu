@@ -30,6 +30,8 @@
 // clips only the pairs below a live count that it reads on the device (no
 // host sync), writing 0 for the rest; its blocks are one warp each, so 4096
 // to 16384 pairs spread over 128 to 512 blocks, one or more on every SM.
+// For a chunk of B pages the pairs are B pages of `cap` slots and each page
+// has its own live count, so one launch serves the whole chunk.
 //
 // Compiled with -fmad=false: torch's plain elementwise ops round every
 // multiply and add on their own, so keeping nvcc from contracting a*b+c into
@@ -153,12 +155,13 @@ __global__ void quad_iou_gather_kernel(const float* __restrict__ quads,
                                        const int* __restrict__ ia,
                                        const int* __restrict__ ib,
                                        const int* __restrict__ n_live,
-                                       float* __restrict__ out, long long P) {
+                                       float* __restrict__ out, long long P,
+                                       long long cap) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  const long long live = n_live ? (long long)*n_live : P;
-  out[p] = p < live ? iou_one(quads + 8 * (long long)ia[p], quads + 8 * (long long)ib[p])
-                    : 0.f;
+  const long long page = p / cap;
+  const bool live = n_live == nullptr || p - page * cap < (long long)n_live[page];
+  out[p] = live ? iou_one(quads + 8 * (long long)ia[p], quads + 8 * (long long)ib[p]) : 0.f;
 }
 
 extern "C" int quad_iou_pairs_launch(const float* q1, const float* q2, float* out,
@@ -183,16 +186,17 @@ extern "C" int quad_iou_matrix_launch(const float* a, const float* b, float* out
   return (int)cudaGetLastError();
 }
 
-// n_live: a device int (pairs p < *n_live are clipped, the rest give 0), or
-// NULL for all P pairs.
+// The P pairs are pages of `cap` slots (cap divides P; one page when cap = P).
+// n_live: device ints, one per page (slot p is clipped when p mod cap <
+// n_live[p / cap], the rest give 0), or NULL for all P pairs.
 extern "C" int quad_iou_gather_launch(const float* quads, const int* ia, const int* ib,
                                       const int* n_live, float* out, long long P,
-                                      void* stream) {
-  if (P > 0) {
+                                      long long cap, void* stream) {
+  if (P > 0 && cap > 0) {
     const int threads = 32;
     const long long blocks = (P + threads - 1) / threads;
     quad_iou_gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        quads, ia, ib, n_live, out, P);
+        quads, ia, ib, n_live, out, P, cap);
   }
   return (int)cudaGetLastError();
 }

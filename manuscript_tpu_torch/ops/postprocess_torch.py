@@ -2,11 +2,12 @@
 ``manuscript_tpu/ops/postprocess_jax.py``): inverse-shrink expansion, rescale
 to the original resolution, removal of boxes contained in a strictly larger
 valid box, area-anomaly filter, axis alignment — masked fixed-shape ops over
-the (M, 9) LANMS output."""
+the (M, 9) LANMS output, or over a chunk's (B, M, 9) with each page on its
+own."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -37,11 +38,13 @@ def expand_quads(quads: torch.Tensor, expand_w: float, expand_h: float) -> torch
 
 
 def _points_in_quads(quads: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
-    """inside[i, j] = all 4 vertices of quad i lie inside (or on) quad j."""
+    """quads (B, M, 4, 2) → inside[b, i, j] = all 4 vertices of quad i lie
+    inside (or on) quad j of the same page."""
     a = quads
-    edge = torch.roll(quads, -1, 1) - a
-    rel = quads[:, None, :, None, :] - a[None, :, None, :, :]
-    cross = edge[None, :, None, :, 0] * rel[..., 1] - edge[None, :, None, :, 1] * rel[..., 0]
+    edge = torch.roll(quads, -1, 2) - a
+    rel = quads[:, :, None, :, None, :] - a[:, None, :, None, :, :]
+    cross = (edge[:, None, :, None, :, 0] * rel[..., 1]
+             - edge[:, None, :, None, :, 1] * rel[..., 0])
     per_vertex = (cross >= -eps).all(dim=-1) | (cross <= eps).all(dim=-1)
     return per_vertex.all(dim=-1)
 
@@ -56,43 +59,55 @@ def postprocess_boxes(
     count: torch.Tensor,
     expand_w: float,
     expand_h: float,
-    scale_x: float,
-    scale_y: float,
+    scale_x: Union[float, torch.Tensor],
+    scale_y: Union[float, torch.Tensor],
     axis_aligned: bool = True,
     remove_anomalies: bool = True,
     anomaly_sigma: float = 5.0,
     anomaly_min_count: int = 30,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(M, 9) score-descending LANMS rows + count → (boxes (M, 9), valid (M,))."""
-    m = boxes.shape[0]
+    """([B,] M, 9) score-descending LANMS rows + count ([B,]) → (boxes
+    ([B,] M, 9), valid ([B,] M)). With a page axis ``scale_x``/``scale_y``
+    may be (B,) tensors, one scale per page."""
+    if boxes.dim() == 2:
+        out, valid = postprocess_boxes(
+            boxes[None], torch.as_tensor(count).reshape(1), expand_w, expand_h,
+            scale_x, scale_y, axis_aligned, remove_anomalies, anomaly_sigma,
+            anomaly_min_count,
+        )
+        return out[0], valid[0]
+    b, m = boxes.shape[:2]
     dev = boxes.device
-    valid = torch.arange(m, device=dev) < count
-    scores = boxes[:, 8]
+    valid = torch.arange(m, device=dev)[None, :] < torch.as_tensor(count, device=dev).reshape(b, 1)
+    scores = boxes[..., 8]
 
-    quads = expand_quads(boxes[:, :8].reshape(m, 4, 2), expand_w, expand_h)
-    scale = torch.tensor([scale_x, scale_y], dtype=torch.float32, device=dev)
-    quads = quads * scale.to(quads.dtype).reshape(1, 1, 2)
+    quads = expand_quads(boxes[..., :8].reshape(b * m, 4, 2), expand_w, expand_h).reshape(b, m, 4, 2)
+    scale = torch.stack([
+        torch.as_tensor(scale_x, dtype=torch.float32, device=dev).expand(b),
+        torch.as_tensor(scale_y, dtype=torch.float32, device=dev).expand(b),
+    ], dim=1)
+    quads = quads * scale.to(quads.dtype).reshape(b, 1, 1, 2)
 
     # containment: drop i if a strictly larger valid j contains it
     areas = quad_areas(quads)
-    larger = areas[None, :] > areas[:, None] + 1e-6
+    larger = areas[:, None, :] > areas[:, :, None] + 1e-6
     not_self = ~torch.eye(m, dtype=torch.bool, device=dev)
-    contained = (_points_in_quads(quads) & larger & not_self & valid[None, :]).any(dim=1)
+    contained = (_points_in_quads(quads) & larger & not_self & valid[:, None, :]).any(dim=2)
     valid = valid & ~contained
 
     if remove_anomalies:
-        n_valid = valid.sum()
+        n_valid = valid.sum(dim=1, keepdim=True)
         vf = valid.to(quads.dtype)
         denom = n_valid.clamp_min(1)
-        mean = (areas * vf).sum() / denom
-        std = torch.sqrt((((areas - mean) ** 2) * vf).sum() / denom)
+        mean = (areas * vf).sum(dim=1, keepdim=True) / denom
+        std = torch.sqrt((((areas - mean) ** 2) * vf).sum(dim=1, keepdim=True) / denom)
         keep = areas <= mean + anomaly_sigma * std
-        apply = (n_valid > anomaly_min_count) & (std > 0) & (keep & valid).any()
+        apply = (n_valid > anomaly_min_count) & (std > 0) & (keep & valid).any(dim=1, keepdim=True)
         valid = torch.where(apply, valid & keep, valid)
 
     if axis_aligned:
-        x_min, x_max = quads[..., 0].amin(dim=1), quads[..., 0].amax(dim=1)
-        y_min, y_max = quads[..., 1].amin(dim=1), quads[..., 1].amax(dim=1)
+        x_min, x_max = quads[..., 0].amin(dim=2), quads[..., 0].amax(dim=2)
+        y_min, y_max = quads[..., 1].amin(dim=2), quads[..., 1].amax(dim=2)
         quads = torch.stack(
             [
                 torch.stack([x_min, y_min], -1),
@@ -100,6 +115,6 @@ def postprocess_boxes(
                 torch.stack([x_max, y_max], -1),
                 torch.stack([x_min, y_max], -1),
             ],
-            dim=1,
+            dim=2,
         )
-    return torch.cat([quads.reshape(m, 8), scores[:, None]], dim=1), valid
+    return torch.cat([quads.reshape(b, m, 8), scores[..., None]], dim=2), valid

@@ -1,7 +1,9 @@
 """IoU of convex quads: kernel and plain twin.
 
 ``quad_iou_gather`` (IoU of quads[ia[p]] with quads[ib[p]] for the pairs
-below a live count, 0 past it) is what the device LANMS calls;
+below a live count, 0 past it) is what the device LANMS calls; with a (B,)
+count the P pairs are B pages of P / B slots each, and slot p is live when
+p mod (P / B) < n_live[p div (P / B)];
 ``quad_iou_pairs`` (IoU of q1[p] with q2[p]) is the same clip on paired
 inputs, and ``quad_iou_matrix`` (all pairs of two sets) the counterpart of the
 TPU kernel's matrix layout. On CUDA tensors all three launch ``csrc/quad_iou.cu``
@@ -94,13 +96,29 @@ def quad_iou_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ).reshape(n, m)
 
 
+def _live_slots(n_pairs: int, n_live) -> int:
+    """Pairs per page: all P for a 0-d count, P / B for a (B,) one."""
+    if n_live.dim() == 0:
+        return n_pairs
+    if n_live.dim() != 1 or n_live.shape[0] == 0 or n_pairs % n_live.shape[0]:
+        raise ValueError(
+            f"quad_iou: {n_pairs} pairs do not split into pages of n_live "
+            f"{tuple(n_live.shape)}"
+        )
+    return n_pairs // n_live.shape[0]
+
+
 def quad_iou_gather_plain(quads, ia, ib, n_live=None) -> torch.Tensor:
     """IoU of quads[ia[p]] with quads[ib[p]]: quads (M, 4, 2), ia/ib (P,)
-    int → (P,), 0 for p ≥ n_live (a 0-d int tensor; None for all P)."""
+    int → (P,); 0 for p ≥ n_live when ``n_live`` is a 0-d int tensor, and
+    for p mod cap ≥ n_live[p div cap] when it is (B,) with cap = P / B;
+    None clips all P."""
     iou = quad_iou_pairs_plain(quads[ia.long()], quads[ib.long()])
     if n_live is None:
         return iou
-    live = torch.arange(ia.shape[0], device=ia.device) < n_live
+    cap = _live_slots(ia.shape[0], n_live)
+    p = torch.arange(ia.shape[0], device=ia.device)
+    live = (p % cap) < n_live.reshape(-1)[p // cap]
     return torch.where(live, iou, torch.zeros_like(iou))
 
 
@@ -110,7 +128,7 @@ def _lib():
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.quad_iou_pairs_launch.argtypes = [ptr, ptr, ptr, i64, ptr]
         lib.quad_iou_matrix_launch.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
-        lib.quad_iou_gather_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
+        lib.quad_iou_gather_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
         lib.quad_iou_pairs_launch.restype = ctypes.c_int
         lib.quad_iou_matrix_launch.restype = ctypes.c_int
         lib.quad_iou_gather_launch.restype = ctypes.c_int
@@ -159,9 +177,10 @@ def quad_iou_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quad_iou_gather_cuda(quads, ia, ib, n_live=None) -> torch.Tensor:
-    """One launch: the pairs are gathered by the kernel and only those below
-    ``n_live`` (read on the device, no host sync) are clipped. Indices must
-    lie in [0, M); the kernel does not check them."""
+    """One launch: the pairs are gathered by the kernel and only the live
+    ones (below ``n_live``, or below each page's ``n_live[b]`` in its block
+    of P / B slots; read on the device, no host sync) are clipped. Indices
+    must lie in [0, M); the kernel does not check them."""
     global launches
     _require(quads, "quads")
     for name, idx in (("ia", ia), ("ib", ib)):
@@ -176,16 +195,18 @@ def quad_iou_gather_cuda(quads, ia, ib, n_live=None) -> torch.Tensor:
     if n_live is not None:
         if n_live.device != quads.device:
             raise ValueError(f"quad_iou: n_live is on {n_live.device}, not {quads.device}")
-        if n_live.dtype != torch.int32 or n_live.dim() != 0:
+        if n_live.dtype != torch.int32 or n_live.dim() > 1:
             raise TypeError(
-                f"quad_iou: n_live must be a 0-d int32 tensor, got {n_live.dtype} "
-                f"{tuple(n_live.shape)}"
+                f"quad_iou: n_live must be a 0-d or (B,) int32 tensor, got "
+                f"{n_live.dtype} {tuple(n_live.shape)}"
             )
+        n_live = n_live.contiguous()
+    cap = ia.shape[0] if n_live is None else _live_slots(ia.shape[0], n_live)
     out = torch.empty(ia.shape[0], dtype=torch.float32, device=quads.device)
     status = _lib().quad_iou_gather_launch(
         quads.data_ptr(), ia.data_ptr(), ib.data_ptr(),
         None if n_live is None else n_live.data_ptr(), out.data_ptr(), ia.shape[0],
-        torch.cuda.current_stream(quads.device).cuda_stream,
+        cap, torch.cuda.current_stream(quads.device).cuda_stream,
     )
     _build.check(status, "quad_iou_gather")
     launches += 1

@@ -86,6 +86,26 @@ class TRBA:
         self.dtype = dtype
 
     @torch.inference_mode()
+    def recognize_tensor(
+        self,
+        crops: torch.Tensor,
+        mode: str = "beam",
+        beam_size: int = 8,
+        alpha: float = 0.9,
+        temperature: float = 1.7,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, img_h, img_w, 3) uint8 crops on the model's device → (token ids
+        (N, steps), confidences (N,)) on that device, enqueued on the current
+        stream and not waited for."""
+        if mode not in ("greedy", "beam"):
+            raise ValueError(f"Unknown mode: {mode}")
+        x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
+        if mode == "greedy":
+            logits, preds = self.model.greedy(x, self.max_length)
+        else:
+            logits, preds = self.model.beam(x, self.max_length, beam_size, alpha, temperature)
+        return sequence_confidence(logits, preds, self.eos_id)
+
     def recognize_u8(
         self,
         crops: np.ndarray,
@@ -96,15 +116,8 @@ class TRBA:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(N, img_h, img_w, 3) uint8 crops → (token ids (N, steps),
         confidences (N,)) as numpy."""
-        if mode not in ("greedy", "beam"):
-            raise ValueError(f"Unknown mode: {mode}")
         x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device)
-        x = (x.to(self.dtype) / 255.0 - 0.5) / 0.5
-        if mode == "greedy":
-            logits, preds = self.model.greedy(x, self.max_length)
-        else:
-            logits, preds = self.model.beam(x, self.max_length, beam_size, alpha, temperature)
-        preds, confs = sequence_confidence(logits, preds, self.eos_id)
+        preds, confs = self.recognize_tensor(x, mode, beam_size, alpha, temperature)
         return preds.cpu().numpy(), confs.cpu().numpy()
 
     def decode(self, ids: Sequence[int]) -> str:

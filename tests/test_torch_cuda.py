@@ -62,6 +62,45 @@ def test_quad_iou_gather_matches_plain(cuda):
             assert torch.all(got[n_live:] == 0)
 
 
+def test_quad_iou_gather_per_page_live_counts(cuda):
+    """B = 4 pages of 16·64 slots, one page empty and one full: one launch."""
+    rng = np.random.default_rng(2)
+    quads = torch.from_numpy(rng.uniform(0, 50, (4 * 64, 4, 2)).astype(np.float32)).to(cuda)
+    base = torch.arange(4, dtype=torch.int32, device=cuda).repeat_interleave(1024) * 64
+    ia = base + torch.from_numpy(rng.integers(0, 64, 4096).astype(np.int32)).to(cuda)
+    ib = base + torch.from_numpy(rng.integers(0, 64, 4096).astype(np.int32)).to(cuda)
+    live = torch.tensor([100, 0, 1024, 513], dtype=torch.int32, device=cuda)
+    before = k2.launches
+    got = k2.quad_iou_gather(quads, ia, ib, live)
+    assert k2.launches == before + 1
+    want = k2.quad_iou_gather_plain(quads, ia, ib, live)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    for b, n in enumerate(live.tolist()):
+        assert torch.all(got.reshape(4, 1024)[b, n:] == 0)
+
+
+def test_process_batch_on_the_card(cuda):
+    """The micro checkpoints through ``process_batch`` (2 pages a chunk) on
+    the card equal a loop of ``predict``, and phase B ran one beam decode
+    (max_length K1 steps) per chunk."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    torch.backends.cudnn.allow_tf32 = False
+    pages = [p for p, _ in eval_pages(3, seed=9100)]
+    pipe = Pipeline(*load_quality_models("cuda"), max_words=32, batch_pages=2)
+    before = k1.launches
+    batch = pipe.process_batch(pages)
+    assert k1.launches - before == 2 * pipe.recognizer.max_length
+    for got, page in zip(batch, pages):
+        ref = [w for b in pipe.predict(page).blocks for w in b.words]
+        words = [w for b in got.blocks for w in b.words]
+        assert [w.text for w in words] == [w.text for w in ref] and len(words) > 20
+        for a, b in zip(words, ref):
+            np.testing.assert_allclose(a.polygon, b.polygon, atol=1e-2, rtol=0)
+
+
 def test_quad_iou_kernels_match_plain(cuda):
     rng = np.random.default_rng(0)
     q1 = torch.from_numpy(rng.uniform(0, 50, (3000, 4, 2)).astype(np.float32)).to(cuda)
@@ -86,6 +125,8 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         k2.quad_iou_gather(q, idx, idx, torch.tensor(3, dtype=torch.int32))  # n_live on the CPU
     with pytest.raises(TypeError):
         k2.quad_iou_gather(q, idx, idx, torch.tensor(3, device=cuda))  # int64 n_live
+    with pytest.raises(ValueError, match="pages"):  # 5 pairs in 2 pages
+        k2.quad_iou_gather(q, idx, idx, torch.zeros(2, dtype=torch.int32, device=cuda))
     args = _step_args(cuda, 4, 2, 16, 64, 50)
     with pytest.raises(ValueError, match="beam"):
         k1.attention_step(*args, beam=3)  # 8 rows, not a multiple of 3
