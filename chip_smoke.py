@@ -6,18 +6,23 @@
 from the root of a checkout. Phases, each checking; a failed phase ends the
 run with a traceback and a non-zero exit:
 
-1. build the CUDA kernels of manuscript_tpu_torch/csrc with nvcc
-   (into build/kernels/) and print the build seconds;
+1. build the CUDA kernels of manuscript_tpu_torch/csrc with nvcc and the
+   host LANMS (csrc/lanms.cpp) with the host C++ compiler, all at once (into
+   build/kernels/), and print each source's seconds;
 2. hold each kernel against its plain torch version at the main paths'
    shapes, and time both (CUDA events over a CUDA graph of repeated calls,
    median of several replays, after warm-up): K1 at R = 256..4096 beam rows
    (beam 8; 8·nw for one page, 8·B·nw for a chunk of B pages), K2's gathered
    entry at the NMS's sizes for one page and for a chunk of 4 pages (per-page
    live counts) beside the same call made of torch gathers and the pairs
-   kernel, and the matrix entry at 1024×1024;
+   kernel, and the matrix entry at 1024×1024; K3 (the scan LANMS's merge
+   walk) at 2048 and 8192 candidates, max_out 1024, against its plain loop
+   (timed once with CUDA events): equal counts, quads within 1e-3 px;
 3. full width with random weights from a seed: EAST resnet50 at 1280² (q=2,
    8192 candidates, 1024 boxes, bf16) and TRBA full (64×256, hidden 256,
-   194 tokens, beam 8, max_len 25) through ``Pipeline.predict`` on 3 pages,
+   194 tokens, beam 8, max_len 25); first the recognizer's first and second
+   pass at new batch shapes (what ``FusedOCR.warm_next_bucket`` is for);
+   then ``Pipeline.predict`` on 3 pages,
    with the kernels' launch counts read around exactly that run (25 K1
    steps per page, K2 in both NMS calls) and each page's word slots; then
    the recognizer on a fixed 32-crop strip (256 beam rows);
@@ -40,24 +45,46 @@ run with a traceback and a non-zero exit:
    crops (equal texts, boxes within 1e-2 px), and ``calibrate`` gives the
    same threshold and counts on the card as on the CPU;
 7. ``evaluate_quality`` (8 held-out pages, seed 9000, beam) on the card with
-   native crops, device crops and ``crop_scale=2`` against the JAX
-   package's CPU numbers in ``manuscript_tpu_torch/configs/
-   quality_reference.json``: ``detector_f1`` equal to 3 decimals,
-   ``e2e_cer`` within 0.005.
+   native crops, device crops, ``crop_scale=2`` and the classic path
+   (``use_fused=False``) against the JAX package's CPU numbers in
+   ``manuscript_tpu_torch/configs/quality_reference.json``: ``detector_f1``
+   equal to 3 decimals, ``e2e_cer`` within 0.005;
+8. the classic host path at phase 3's full width: ``EAST.predict`` with the
+   host LANMS and with the scan LANMS on the card (K3) on 3 pages (equal box
+   counts, sorted polygons within rtol 1e-2, atol 0.5) with each stage's
+   seconds, ``predict_batch`` (4 a chunk) on 8 pages, ``TRBA.predict`` on
+   64 crops in batches of 32 (2 × 25 K1 steps), ``Pipeline(fused=False)``
+   ``predict`` on 3 pages and ``process_batch`` on 8 (pages/s beside phase
+   5's, launch counts around each run); then on the micro checkpoints, TF32
+   off, ``Pipeline(fused=False)`` texts equal on the card and the CPU;
+9. serving: an in-process ``OCRServer`` over the micro pipeline answers 8
+   concurrent ``.npy`` requests with ``Pipeline.predict``'s texts and counts
+   8 pages in ``/metrics``; over phase 3's full-width pipeline, 32 requests
+   from 8 client threads (pages/s, p50/p99 latency, mean batch fill); and
+   ``python -m manuscript_tpu_torch serve`` as a subprocess (random
+   weights, an empty HOME) answers ``/healthz`` with the card's name and
+   one ``.npy`` POST with 200, and is stopped.
 
 It prints the card's name and power limit, one JSON line with a row per
-kernel (launches from phase 5), and last the line ``{"ok": true, "device":
-{...}}``. Without a CUDA card, or without the rest of the repository beside
-it, it exits non-zero and prints no result.
+kernel (K1 and K2 launches from phase 5, K3 launches from phase 8), and last
+the line ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
+the rest of the repository beside it, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -283,7 +310,7 @@ def many_pages(torch, det, rec, rng, k1, k2):
     chunk_equals_pages(torch, pipe._fused, pages[:4], k1, k2)
     device_crop_pages(torch, det, rec, pages, k1, k2)
     one_stream_or_two(torch, pipe, pages + [synthetic_page(rng) for _ in range(8)])
-    return launches, chunks
+    return launches, chunks, {"process_batch": len(pages) / t_batch, "predict loop": len(pages) / t_loop}
 
 
 def chunk_equals_pages(torch, fused, pages, k1, k2) -> None:
@@ -470,13 +497,13 @@ def micro_batches(torch) -> None:
 
 def quality_on_card() -> None:
     """Phase 7: ``evaluate_quality`` (8 held-out pages, seed 9000, beam) with
-    native crops, device crops and ``crop_scale=2`` against the JAX
-    package's CPU numbers in ``configs/quality_reference.json``."""
+    native crops, device crops, ``crop_scale=2`` and the classic path against
+    the JAX package's CPU numbers in ``configs/quality_reference.json``."""
     from manuscript_tpu_torch.utils.quality import evaluate_quality
 
     ref = json.loads((ROOT / "manuscript_tpu_torch" / "configs" / "quality_reference.json").read_text())
     for name, kw in (("native", {}), ("device", {"crop_source": "device"}),
-                     ("crop_scale_2", {"crop_scale": 2})):
+                     ("crop_scale_2", {"crop_scale": 2}), ("classic", {"use_fused": False})):
         t0 = time.perf_counter()
         got = evaluate_quality(**ref["args"], **kw, device="cuda")
         print(f"{name}: detector_f1 {got['detector_f1']:.5f} (JAX CPU "
@@ -487,6 +514,331 @@ def quality_on_card() -> None:
         check(abs(got["e2e_cer"] - ref[name]["e2e_cer"]) <= 0.005, (name, got))
 
 
+def candidate_field(rng, n: int, words: int, size: float = 1280.0) -> np.ndarray:
+    """``n`` detector candidates (n, 9): jittered copies of ``words`` word
+    boxes on a size² canvas with scores in [0.5, 1), in random order."""
+    c = rng.uniform(0, size, (words, 2))
+    wh = np.stack([rng.uniform(40, 160, words), rng.uniform(15, 40, words)], 1)
+    base = np.concatenate([c - wh / 2, c + [1, -1] * wh / 2, c + wh / 2, c + [-1, 1] * wh / 2], 1)
+    rows = base[rng.integers(0, words, n)] + rng.normal(0, 2.0, (n, 8))
+    return np.concatenate([rows, rng.uniform(0.5, 1, (n, 1))], 1).astype(np.float32)
+
+
+def k3_rows(torch, k3, rng, dev) -> dict:
+    """Phase 2, K3: the scan LANMS's merge walk at 2048 and 8192 candidates
+    (all live, 16 candidates a word), max_out 1024, against its plain loop.
+    The bound counts one clip (860 f32 operations, as K2's) per live step."""
+    rows_out = {}
+    for n in (2048, 8192):
+        cands = torch.from_numpy(candidate_field(rng, n, n // 16)).to(dev)[None]
+        inf = torch.full_like(cands[..., 0], float("inf"))
+        key = torch.where(cands[..., 8] >= 0, cands[..., 0], inf)
+        rows = cands[:, torch.sort(key, dim=1, stable=True).indices[0]].contiguous()
+        pk, sk, mk = k3.lanms_merge_scan_cuda(rows, 0.2, 1024)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pp, sp, mp = k3.lanms_merge_scan_plain(rows, 0.2, 1024)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check(torch.equal(mk, mp), (mk, mp))
+        m = min(int(mk[0]), 1024)
+        err = max((pk - pp)[0, :m].abs().max().item(), (sk - sp)[0, :m].abs().max().item())
+        check(err <= 1e-3, err)
+        ms = graph_time_ms(torch, lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024), calls=5, replays=5)
+        nbytes = rows.numel() * 4 + 1024 * 9 * 4 + 4
+        rows_out[n] = (ms, plain_ms, *bound(nbytes, n * 860), err)
+        print(f"K3 lanms_merge_scan K={n} live candidates ({n // 16} words), max_out 1024: "
+              f"{int(mk[0])} merged quads; max|d| = {err:.3e}; "
+              "ms {:.4f} plain_ms (one call, CUDA events) {:.4f} bound_ms {:.6f} ({})".format(
+                  *rows_out[n][:4]))
+    return rows_out
+
+
+def first_pass_cost(torch, rec) -> None:
+    """The recognizer's first pass at a batch shape against its second, at
+    full width (beam 8): what ``FusedOCR.warm_next_bucket`` spends on a zero
+    strip so that a grown capacity or a short chunk does not pay it on a
+    request. One shape first absorbs the process's one-time start-up."""
+    def one(rows):
+        x = torch.full((rows, rec.img_h, rec.img_w, 3), 255, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.recognize_tensor(x, "beam", 8, 0.9, 1.7)[1].cpu()
+        return time.perf_counter() - t0
+
+    one(32), one(32)
+    for rows in (64, 96, 128, 256):
+        first, second, third = one(rows), one(rows), one(rows)
+        print(f"phase B at a new shape, {rows} crops: first pass {first:.4f} s, second "
+              f"{second:.4f} s, third {third:.4f} s (first / second {first / second:.3f})")
+
+
+def classic_path(torch, det, rec, rng, k1, k2, k3, fused_rates) -> dict:
+    """Phase 8: the classic host path at full width; returns K3's launches
+    around the ``nms="device"`` run."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.ops.image import crop_axis_aligned
+
+    det.max_boxes = 1024  # the fused pipelines of phases 3 and 5 shrank it
+    pages = [synthetic_page(rng) for _ in range(8)]
+    det.nms = "host"
+    det.predict(pages[0])  # warm-up
+    host, stages = [], []
+    for p in pages[:3]:
+        host.append(det.predict(p))
+        stages.append({k: round(v, 4) for k, v in det.last_timings.items()})
+    det.nms = "device"
+    det.predict(pages[0])  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = 0
+    dev_res, dev_stages = [], []
+    for p in pages[:3]:
+        dev_res.append(det.predict(p))
+        dev_stages.append({k: round(v, 4) for k, v in det.last_timings.items()})
+    launches = {"lanms_merge_scan": k3.launches, "quad_iou": k2.launches, "attention_step": k1.launches}
+    det.nms = "host"
+    print(f"EAST.predict, host LANMS: stage seconds per page {stages}")
+    print(f"EAST.predict, scan LANMS on the card: stage seconds per page {dev_stages}; launches "
+          f"around the 3 pages {launches}")
+    check(launches["lanms_merge_scan"] == 3 and launches["quad_iou"] >= 3, launches)
+    counts = []
+    for h, d in zip(host, dev_res):
+        wh, wd = words_of(h["page"]), words_of(d["page"])
+        counts.append((len(wh), len(wd)))
+        check(len(wh) == len(wd) and len(wh) > 0, (len(wh), len(wd)))
+        ph = np.sort(np.array([w.polygon for w in wh]).reshape(len(wh), -1), 0)
+        pd = np.sort(np.array([w.polygon for w in wd]).reshape(len(wd), -1), 0)
+        check(np.allclose(ph, pd, rtol=1e-2, atol=0.5), np.abs(ph - pd).max())
+        check_finite(wh + wd)
+    print(f"boxes per page, host vs device LANMS: {counts}")
+
+    det.predict_batch(pages[:4], batch_size=4)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = det.predict_batch(pages, batch_size=4)
+    dt = time.perf_counter() - t0
+    print(f"EAST.predict_batch(batch_size=4): {len(pages)} pages in {dt:.4f} s = "
+          f"{len(pages) / dt:.4f} pages/s; boxes per page {[len(words_of(r['page'])) for r in batch]}")
+    check(len(batch) == len(pages) and all(len(words_of(r["page"])) > 0 for r in batch), "predict_batch")
+    for r in batch:
+        check_finite(words_of(r["page"]))
+
+    crops = []
+    for p, r in zip(pages, host):
+        for w in words_of(r["page"]):
+            region = crop_axis_aligned(p, np.asarray(w.polygon, dtype=np.int32))
+            if region is not None and region.size > 0:
+                crops.append(region)
+    crops = (crops * 2)[:64]
+    check(len(crops) == 64, len(crops))
+    k1.launches = 0
+    t0 = time.perf_counter()
+    texts = rec.predict(crops, batch_size=32)
+    dt = time.perf_counter() - t0
+    print(f"TRBA.predict: 64 crops in batches of 32 in {dt:.4f} s; K1 steps {k1.launches}; "
+          f"confidences {[round(t['confidence'], 4) for t in texts[:4]]}...")
+    check(k1.launches == 2 * rec.max_length and len(texts) == 64, k1.launches)
+    check(all(np.isfinite(t["confidence"]) for t in texts), "confidences")
+
+    pipe = Pipeline(det, rec, fused=False, beam_size=8)
+    pipe.predict(pages[0])  # warm-up
+    torch.cuda.synchronize()
+    rates = {}
+    for name, run, n in (("predict", lambda: [pipe.predict(p) for p in pages[:3]], 3),
+                         ("process_batch", lambda: pipe.process_batch(pages, detector_batch_size=4), 8)):
+        k1.launches = k2.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs = {"attention_step": k1.launches, "quad_iou": k2.launches, "lanms_merge_scan": k3.launches}
+        rates[name] = n / dt
+        read = [sum(w.text is not None for w in words_of(p)) for p in out]
+        # one recognizer call per page (predict) or for all pages (process_batch),
+        # in batches of 32 crops, max_length K1 steps each
+        calls = read if name == "predict" else [sum(read)]
+        steps = rec.max_length * sum(-(-k // 32) for k in calls)
+        words = [w for p in out for w in words_of(p)]
+        print(f"Pipeline(fused=False).{name}: {n} pages in {dt:.4f} s = {n / dt:.4f} pages/s; "
+              f"boxes {len(words)}, recognized {sum(read)}; launches {runs} (the host LANMS "
+              f"launches nothing; expected K1 steps {steps})")
+        check(sum(read) > 0 and runs["attention_step"] == steps and runs["quad_iou"] == 0, runs)
+        check_finite(words)
+    print(f"pages/s, classic path {({k: round(v, 4) for k, v in rates.items()})} against the fused "
+          f"path of phase 5 {({k: round(v, 4) for k, v in fused_rates.items()})}")
+    return launches
+
+
+def classic_micro(torch) -> None:
+    """Phase 8, the micro checkpoints with TF32 off: ``Pipeline(fused=False)``
+    gives the same texts on the card as on the CPU (host LANMS), and the scan
+    LANMS gives the same boxes on the card as on the CPU."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    pages = [p for p, _ in eval_pages(2, seed=9100)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        east, trba = load_quality_models(dev)
+        pipe = Pipeline(east, trba, device=dev, fused=False)
+        out[dev] = [words_of(pipe.predict(p)) for p in pages]
+        east.nms = "device"
+        out[dev + " scan"] = [words_of(east.predict(pages[0])["page"])]
+    for name in ("", " scan"):
+        card, cpu = out["cuda" + name], out["cpu" + name]
+        check([len(ws) for ws in card] == [len(ws) for ws in cpu], (name, card, cpu))
+        box = max(np.abs(np.subtract(a.polygon, b.polygon)).max()
+                  for ws, wr in zip(card, cpu) for a, b in zip(ws, wr))
+        print(f"micro{name or ' classic'}: words per page {[len(ws) for ws in card]}, max box |d| "
+              f"card vs CPU {box:.3e} px")
+        check(box <= 1e-2, box)
+    texts = [[w.text for w in ws] for ws in out["cuda"]]
+    print(f"micro classic texts, first page: {texts[0]}")
+    check(texts == [[w.text for w in ws] for ws in out["cpu"]], "classic texts card vs CPU")
+
+
+def npy_body(page) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, page)
+    return buf.getvalue()
+
+
+def http(url: str, body: bytes = None, timeout: float = 300.0):
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def serve_clients(server, pages, n_requests: int, n_clients: int) -> list:
+    """``n_requests`` ``.npy`` POSTs from ``n_clients`` threads → [(status,
+    body, seconds)] in request order."""
+    bodies = [npy_body(p) for p in pages]
+    out = [None] * n_requests
+    todo = list(range(n_requests))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            t0 = time.perf_counter()
+            status, body = http(f"http://127.0.0.1:{server.port}/ocr", bodies[i % len(bodies)])
+            out[i] = (status, json.loads(body), time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "clients still running")
+    return out
+
+
+def metric(server, name: str) -> float:
+    _, text = http(f"http://127.0.0.1:{server.port}/metrics")
+    line = next(ln for ln in text.decode().splitlines() if ln.startswith(name + " "))
+    return float(line.split()[1])
+
+
+def serving(torch, det, rec, rng, k1, k2) -> None:
+    """Phase 9: the in-process server over the micro pipeline and over the
+    full-width one, then the command-line server as a subprocess."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.serve import OCRServer
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    torch.backends.cudnn.allow_tf32 = False
+    micro = Pipeline(*load_quality_models("cuda"))
+    pages = [p for p, _ in eval_pages(8, seed=9200)]
+    server = OCRServer(micro, host="127.0.0.1", port=0, batch_wait_ms=50.0)
+    server.start_background()
+    try:
+        got = serve_clients(server, pages, 8, 8)
+        n_pages = metric(server, "ocr_pages_total")
+    finally:
+        server.shutdown()
+    check(all(status == 200 for status, _, _ in got), [g[0] for g in got])
+    texts = [body["text"] for _, body, _ in got]
+    ref = [micro.get_text(micro.predict(p)) for p in pages]
+    print(f"micro server: 8 concurrent requests, 200 each; /metrics pages {n_pages:.0f}; served "
+          f"texts equal predict's: {sum(a == b for a, b in zip(texts, ref))} of 8")
+    check(texts == ref and all(texts), (texts, ref))
+    check(n_pages == 8, n_pages)
+
+    torch.backends.cudnn.allow_tf32 = True
+    det.max_boxes = 1024
+    full = Pipeline(det, rec, beam_size=8, batch_pages=4)
+    pages = [synthetic_page(rng) for _ in range(8)]
+    server = OCRServer(full, host="127.0.0.1", port=0, batch_wait_ms=25.0)
+    server.start_background()
+    try:
+        serve_clients(server, pages, 8, 8)  # warm-up: capacity, cuDNN plans, warm_next_bucket
+        batches0, pages0 = metric(server, "ocr_batches_total"), metric(server, "ocr_pages_total")
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        got = serve_clients(server, pages, 32, 8)
+        wall = time.perf_counter() - t0
+        launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+        fill = ((metric(server, "ocr_pages_total") - pages0)
+                / (metric(server, "ocr_batches_total") - batches0))
+    finally:
+        server.shutdown()
+    check(all(status == 200 for status, _, _ in got), [g[0] for g in got])
+    lat = np.array([sec for _, _, sec in got])
+    for _, body, _ in got:
+        for w in (w for b in body["page"]["blocks"] for w in b["words"]):
+            check(np.all(np.isfinite(w["polygon"])) and np.isfinite(w["detection_confidence"]), w)
+    print(f"full-width server: 32 requests from 8 clients in {wall:.4f} s = {32 / wall:.4f} pages/s; "
+          f"latency p50 {np.percentile(lat, 50):.4f} s, p99 {np.percentile(lat, 99):.4f} s, max "
+          f"{lat.max():.4f} s; mean batch fill {fill:.3f} pages; word capacity "
+          f"{full._fused.max_words}, warmed buckets {sorted(full._fused._warmed_buckets)}; "
+          f"launches around the 32 requests {launches}")
+    # phase B (25 K1 steps) and both NMS calls of phase A for every batch
+    check(launches["attention_step"] >= rec.max_length * 32 // 4
+          and launches["quad_iou"] >= 2 * 32 // 4, launches)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    home = tempfile.mkdtemp(prefix="chip_smoke_home_")
+    env = dict(os.environ, HOME=home, MANUSCRIPT_TPU_ALLOW_RANDOM_INIT="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "manuscript_tpu_torch", "serve", "--host", "127.0.0.1",
+         "--port", str(port)], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+    )
+    try:
+        lines = []  # up to "serving OCR on ...", printed once the models are up
+        while not (lines and "serving OCR" in lines[-1]):
+            line = proc.stdout.readline()
+            check(line != "", "serve subprocess ended: " + "".join(lines[-20:]))
+            lines.append(line)
+        first = lines[-1]
+        t0 = time.perf_counter()
+        _, body = http(f"http://127.0.0.1:{port}/healthz")
+        health = json.loads(body)
+        status, body = http(f"http://127.0.0.1:{port}/ocr", npy_body(pages[0]))
+        page = json.loads(body)
+        print(f"python -m manuscript_tpu_torch serve: {first.strip()}; /healthz {health}; one "
+              f".npy POST: {status}, {sum(len(b['words']) for b in page['page']['blocks'])} boxes, "
+              f"{time.perf_counter() - t0:.4f} s")
+        check(health["backend"] == "cuda" and health["device"] == torch.cuda.get_device_name(0), health)
+        check(status == 200, status)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(proc.poll() is not None, "serve subprocess still running")
+
+
 def main() -> int:
     import torch
 
@@ -495,7 +847,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from manuscript_tpu_torch import EAST, TRBA, Pipeline
-    from manuscript_tpu_torch.ops import _build, attention_step as k1, quad_iou as k2
+    from manuscript_tpu_torch.ops import _build, attention_step as k1, lanms_torch as k3, quad_iou as k2
     from manuscript_tpu_torch.ops.image import detector_preprocess_host
     from manuscript_tpu_torch.ops.lanms_torch import _predecessor_pairs, locality_aware_nms_parallel
 
@@ -509,8 +861,10 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------------
     phase("1 build")
-    t_build = _build.build(verbose=True)
-    print(f"build seconds: {t_build:.2f}")
+    t0 = time.perf_counter()
+    seconds = _build.build(verbose=True)
+    print(f"build seconds, all sources at once: {time.perf_counter() - t0:.2f}; each (from the "
+          f"common start to its compiler's end): {({k: round(v, 2) for k, v in seconds.items()})}")
 
     # ---- 2. kernels against their plain versions ---------------------------
     phase("2 kernels vs plain")
@@ -629,6 +983,7 @@ def main() -> int:
     nms_ops = device_ops(torch, lambda: locality_aware_nms_parallel(cands, 0.2, max_out=256))
     print(f"device ops of one locality_aware_nms_parallel call (8192 candidates, "
           f"256 boxes): {nms_ops}")
+    k3_rows_ = k3_rows(torch, k3, rng, dev)
 
     # ---- 3. full width, random init ----------------------------------------
     phase("3 full width, random weights")
@@ -637,6 +992,7 @@ def main() -> int:
                allow_random_init=True, seed=0)
     rec = TRBA(cnn_stage_plan="full", img_h=64, img_w=256, hidden_size=256,
                max_length=25, allow_random_init=True, seed=1)
+    first_pass_cost(torch, rec)
     pipe = Pipeline(det, rec, beam_size=8)
     pages = [synthetic_page(rng) for _ in range(4)]
     # random weights give sub-pixel geometry and scores near 0.4: set the
@@ -718,7 +1074,7 @@ def main() -> int:
     # ---- 5. many pages, full width -------------------------------------------
     phase("5 many pages, full width, random weights")
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as phase 3 ran
-    batch_launches, chunks = many_pages(torch, det, rec, rng, k1, k2)
+    batch_launches, chunks, fused_rates = many_pages(torch, det, rec, rng, k1, k2)
 
     # ---- 6. micro checkpoints: process_batch against predict on the card ------
     phase("6 micro checkpoints, process_batch vs predict and calibrate, card vs CPU")
@@ -729,6 +1085,17 @@ def main() -> int:
     phase("7 quality harness on the card")
     quality_on_card()
 
+    # ---- 8. the classic host path --------------------------------------------------
+    phase("8 classic host path, full width, random weights; micro checkpoints card vs CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    classic_launches = classic_path(torch, det, rec, rng, k1, k2, k3, fused_rates)
+    torch.backends.cudnn.allow_tf32 = False
+    classic_micro(torch)
+
+    # ---- 9. serving ------------------------------------------------------------------
+    phase("9 serving")
+    serving(torch, det, rec, rng, k1, k2)
+
     # ---- result ---------------------------------------------------------------
     print(smi)
     # the rows of the batched path: K1 at its largest beam-row count (8·B·nw
@@ -738,9 +1105,11 @@ def main() -> int:
     r_row = min((r for r in k1_rows if r >= r_batch), default=max(k1_rows))
     k1_ms, k1_plain_ms, k1_bound, k1_by, _ = k1_rows[r_row]
     k2_ms, k2_plain_ms, k2_bound, k2_by, _ = k2_rows["pred4"]
-    print(f"kernel rows: launches of process_batch on 8 pages (phase 5; Pipeline.predict "
-          f"on 3 pages in phase 3: {launches}); K1 at R={r_row}, K2 gathered at "
-          f"4 × 8191 predecessor pairs")
+    k3_ms, k3_plain_ms, k3_bound, k3_by, _ = k3_rows_[8192]
+    print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
+          f"Pipeline.predict on 3 pages in phase 3: {launches}), K3 launches of "
+          f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
+          f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
     rows = [
         {"name": "attention_step", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/attention_step.cu",
@@ -754,6 +1123,14 @@ def main() -> int:
          "launches": batch_launches["quad_iou"], "max_abs_err": max(k2_err, k2m_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "lanms_merge_scan", "route": "cuda",
+         "source": "manuscript_tpu_torch/csrc/quad_iou.cu",
+         "replaces": "manuscript_tpu/ops/lanms_jax.py:151 (the lax.scan merge of "
+                     "locality_aware_nms_jax; XLA, not Pallas: a kernel of the port only)",
+         "launches": classic_launches["lanms_merge_scan"],
+         "max_abs_err": max(r[-1] for r in k3_rows_.values()),
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

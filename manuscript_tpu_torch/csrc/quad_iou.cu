@@ -186,6 +186,132 @@ extern "C" int quad_iou_matrix_launch(const float* a, const float* b, float* out
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K3, lanms_merge_scan: the x0-sorted merge chain of the scan LANMS.
+//
+// A kernel of the port with no Pallas counterpart: it replaces the lax.scan
+// merge of manuscript_tpu/ops/lanms_jax.py: locality_aware_nms_jax (XLA).
+// Each page's candidate rows [x0..y3, score], already sorted by x0 with the
+// padding rows (score < 0) last, are walked in order. A row whose IoU with
+// the running quad (the row clipped against it, as quad_iou_pairs(q, cur))
+// exceeds the threshold is merged into it: its vertices re-ordered to the
+// running quad's (the least squared distance over the 4 cyclic shifts of
+// both orientations, forward first), then averaged with weights running
+// weight : score, and the running score is the larger of the two. Any other
+// row closes the running quad into slot min(m, max_out - 1), m += 1, and
+// starts a new one. Padding rows change nothing. The last running quad is
+// closed at the end. Outputs: out_p (max_out, 4, 2) zeros past the closed
+// quads, out_s (max_out) -inf past them, count m (which may exceed max_out,
+// as in the reference).
+//
+// What bounds it on an H100: neither bytes nor operations. Every step
+// depends on the one before (the IoU is taken against the running quad), so
+// a page is one chain of K dependent clips: the time is K times the latency
+// of one step's arithmetic on one thread, far above what the page's bytes
+// (K·36 in, max_out·36 out) or its ~K·700 operations cost.
+//
+// What the design does about it: one block per page, whose threads fill the
+// outputs' padding in parallel, then one thread walks the chain with the
+// running quad, the row and the clip buffer in registers (iou_one above, the
+// same clip as K2, and -fmad=false as there, so a merge rounds as torch's
+// unfused ops do). Padding rows are skipped with one compare. A simple and
+// correct kernel first: splitting the chain where it provably breaks is the
+// way to make it faster.
+__global__ void lanms_merge_scan_kernel(const float* __restrict__ rows, long long K, float thr,
+                                        long long max_out, float* __restrict__ out_p,
+                                        float* __restrict__ out_s, int* __restrict__ count) {
+  const long long page = blockIdx.x;
+  rows += page * K * 9;
+  out_p += page * max_out * 8;
+  out_s += page * max_out;
+  for (long long i = threadIdx.x; i < max_out * 8; i += blockDim.x) out_p[i] = 0.f;
+  for (long long i = threadIdx.x; i < max_out; i += blockDim.x) out_s[i] = -INFINITY;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  float cur[8], cur_s = 0.f, cur_w = 0.f;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) cur[v] = 0.f;
+  bool has_cur = false;
+  long long m = 0;
+  for (long long k = 0; k < K; ++k) {
+    const float* r = rows + 9 * k;
+    const float s = r[8];
+    if (!(s >= 0.f)) continue;  // padding
+    float q[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) q[v] = r[v];
+    if (has_cur) {
+      if (iou_one(q, cur) > thr) {
+        int best = 0;
+        float best_d = 0.f;
+#pragma unroll
+        for (int o = 0; o < 8; ++o) {
+          float d = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int idx = o < 4 ? ((o + i) & 3) : ((o - i) & 3);
+            const float dx = q[2 * idx] - cur[2 * i], dy = q[2 * idx + 1] - cur[2 * i + 1];
+            d += dx * dx;
+            d += dy * dy;
+          }
+          if (o == 0 || d < best_d) {
+            best_d = d;
+            best = o;
+          }
+        }
+        float al[8];
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          if (o == best) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int idx = o < 4 ? ((o + i) & 3) : ((o - i) & 3);
+              al[2 * i] = q[2 * idx];
+              al[2 * i + 1] = q[2 * idx + 1];
+            }
+          }
+        const float tot = cur_w + s;
+        const float den = tot == 0.f ? 1.f : tot;
+#pragma unroll
+        for (int v = 0; v < 8; ++v) cur[v] = (cur[v] * cur_w + al[v] * s) / den;
+        cur_s = fmaxf(cur_s, s);
+        cur_w = tot;
+        continue;
+      }
+      const long long slot = m < max_out - 1 ? m : max_out - 1;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) out_p[8 * slot + v] = cur[v];
+      out_s[slot] = cur_s;
+      ++m;
+    }
+#pragma unroll
+    for (int v = 0; v < 8; ++v) cur[v] = q[v];
+    cur_s = s;
+    cur_w = s;
+    has_cur = true;
+  }
+  if (has_cur) {
+    const long long slot = m < max_out - 1 ? m : max_out - 1;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) out_p[8 * slot + v] = cur[v];
+    out_s[slot] = cur_s;
+    ++m;
+  }
+  count[page] = (int)m;
+}
+
+// rows: B pages of K x0-sorted rows of 9 floats; out_p (B, max_out, 8),
+// out_s (B, max_out), count (B) int; max_out >= 1.
+extern "C" int lanms_merge_scan_launch(const float* rows, long long B, long long K, float thr,
+                                       long long max_out, float* out_p, float* out_s, int* count,
+                                       void* stream) {
+  if (B > 0)
+    lanms_merge_scan_kernel<<<(unsigned)B, 128, 0, (cudaStream_t)stream>>>(rows, K, thr, max_out,
+                                                                           out_p, out_s, count);
+  return (int)cudaGetLastError();
+}
+
 // The P pairs are pages of `cap` slots (cap divides P; one page when cap = P).
 // n_live: device ints, one per page (slot p is clipped when p mod cap <
 // n_live[p / cap], the rest give 0), or NULL for all P pairs.

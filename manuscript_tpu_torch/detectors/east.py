@@ -1,21 +1,64 @@
-"""EAST detector wrapper (counterpart of ``manuscript_tpu/detectors/east.py``):
-the network plus the configuration fields that phase A of the page path
-reads, with the JAX wrapper's defaults. Loads a flax ``.msgpack`` checkpoint
-with the port's own reader, or with ``allow_random_init=True`` fills the
-model from a seeded generator; it never downloads anything. The network
-computes in ``dtype`` (bfloat16 by default); score and geometry come out
-float32."""
+"""EAST detector wrapper (counterpart of ``manuscript_tpu/detectors/east.py``),
+with the JAX wrapper's defaults and its ``predict``/``predict_batch`` API.
+
+Weights: a flax ``.msgpack`` checkpoint read with the port's own reader,
+given as ``weights_path`` or found in ``~/.manuscript_tpu/east``; else, when
+``allow_random_init`` (by default ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``)
+allows it, weights from a seeded generator. Nothing is ever downloaded. The
+network computes in ``dtype`` (bfloat16 by default); score and geometry
+come out float32.
+
+``predict`` per page: the host resizes the page to target² uint8; on the
+device the network, the cell decode and the candidate compaction run; then
+
+* ``nms="host"`` (default): the candidates come to the host, where the C++
+  LANMS (``ops/lanms.py``) and the numpy box chain (expansion, rescale,
+  containment and anomaly filters, axis alignment; ``ops/boxes.py``) run;
+* ``nms="device"``: the scan LANMS (``ops/lanms_torch.locality_aware_nms``,
+  kernel K3 and K2 on the card) and the post-processing
+  (``ops/postprocess_torch.py``) stay on the device and only the boxes come
+  back.
+"""
 
 from __future__ import annotations
 
+import os
+import time
 from pathlib import Path
-from typing import Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..models.east import EASTModel
+from ..ops.boxes import (
+    expand_boxes,
+    quad_bbox_int,
+    remove_area_anomalies,
+    remove_fully_contained,
+    scale_boxes,
+    to_axis_aligned,
+)
+from ..ops.decode import compact_candidates, compact_topk, decode_cells
+from ..ops.image import detector_preprocess_host, read_image
+from ..ops.lanms import locality_aware_nms
+from ..ops.lanms_torch import locality_aware_nms as device_lanms
+from ..ops.postprocess_torch import postprocess_boxes
+from ..ops.reading_order import reading_order_permutation
+from ..types import Block, Page, Word
 from ..utils.device import resolve_device
-from ..utils.weights import init_random_, msgpack_restore, params_from_jax
+from ..utils.weights import (
+    allow_random_init_default,
+    cached_checkpoint,
+    init_random_,
+    msgpack_restore,
+    params_from_jax,
+)
+
+VIS_NOT_PORTED = (
+    "vis=True needs utils/visualize.py (PIL drawing), which the port does not "
+    "have yet: ROADMAP §1 item 8"
+)
 
 
 class EAST:
@@ -37,8 +80,9 @@ class EAST:
         backbone: str = "resnet50",
         dtype: torch.dtype = torch.bfloat16,
         max_candidates: int = 8192,
+        nms: str = "host",
         max_boxes: int = 1024,
-        allow_random_init: bool = False,
+        allow_random_init: Optional[bool] = None,
         seed: int = 0,
     ):
         self.device = resolve_device(device)
@@ -56,8 +100,20 @@ class EAST:
         self.backbone = backbone
         self.dtype = dtype
         self.max_candidates = max_candidates
+        if nms not in ("host", "device"):
+            raise ValueError(f"nms must be 'host' or 'device', got {nms!r}")
+        self.nms = nms
         self.max_boxes = max_boxes
+        self.last_timings: Dict[str, float] = {}  # host-clock stage seconds of the last predict
+
+        if weights_path is not None and not os.path.exists(str(weights_path)):
+            raise FileNotFoundError(f"Weights not found: {weights_path}")
+        if weights_path is None:
+            weights_path = cached_checkpoint("east")
+        if allow_random_init is None:
+            allow_random_init = allow_random_init_default()
         self.weights_path = weights_path
+        self.allow_random_init = allow_random_init
 
         self.model = EASTModel(backbone)
         if weights_path is not None:
@@ -66,6 +122,153 @@ class EAST:
             init_random_(self.model, seed)
         else:
             raise ValueError(
-                "EAST needs weights_path=, or allow_random_init=True for untrained weights"
+                "EAST found no checkpoint (none given, none in ~/.manuscript_tpu/east): "
+                "pass weights_path=, or allow_random_init=True (or set "
+                "MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) for untrained weights"
             )
         self.model.to(device=self.device, dtype=dtype).eval()
+
+    # ---- device stages -------------------------------------------------------
+
+    def maps(self, pages: torch.Tensor):
+        """(B, target, target, 3) uint8 pages on the device → score (B, h, w)
+        and geometry (B, h, w, 8), float32."""
+        out = self.model((pages.to(self.dtype) / 255.0 - 0.5) / 0.5)
+        return out["score"][..., 0], out["geometry"]
+
+    def candidates(self, score: torch.Tensor, geo: torch.Tensor, score_thresh=None) -> torch.Tensor:
+        """Maps → ([B,] max_candidates, 9) candidate rows (score −1 on
+        padding). ``score_thresh``: the detector's by default, or one per page."""
+        thresh = self.score_thresh if score_thresh is None else score_thresh
+        quads, scores, valid = decode_cells(
+            score, geo, thresh, self.quantization, 1.0 / self.score_geo_scale
+        )
+        return compact_candidates(quads, scores, valid, self.max_candidates)
+
+    def _upload(self, resized: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(resized)).to(self.device)
+
+    # ---- host stages -----------------------------------------------------------
+
+    def _box_chain(self, nms_quads: np.ndarray, orig_h: int, orig_w: int) -> np.ndarray:
+        """Host post-processing of one page's LANMS rows → output quads."""
+        expanded = expand_boxes(nms_quads, expand_w=self.expand_ratio_w, expand_h=self.expand_ratio_h)
+        processed = remove_fully_contained(scale_boxes(expanded, self.target_size, orig_h, orig_w))
+        if self.remove_area_anomalies:
+            processed = remove_area_anomalies(
+                processed, sigma_threshold=self.anomaly_sigma_threshold,
+                min_box_count=self.anomaly_min_box_count,
+            )
+        return to_axis_aligned(processed) if self.axis_aligned_output else processed
+
+    # ---- public API ----------------------------------------------------------------
+
+    @torch.inference_mode()
+    def predict(
+        self,
+        img_or_path: Union[str, Path, np.ndarray],
+        vis: bool = False,
+        profile: bool = False,
+        return_maps: bool = False,
+        sort_reading_order: bool = False,
+    ) -> Dict[str, Any]:
+        """Detect text → {"page", "vis_image", "score_map", "geo_map"}
+        (``geo_map`` as (8, h, w)). ``last_timings`` then holds the host-clock
+        seconds of the stages: ``prep`` (read and resize), ``forward`` (the
+        launch of network, decode and compaction; with ``nms="device"`` also
+        NMS and post-processing), ``fetch`` (the wait for the device and the
+        copy), ``lanms`` and ``boxes`` (the host LANMS and box chain)."""
+        if vis:
+            raise NotImplementedError(VIS_NOT_PORTED)
+        t = [time.perf_counter()]
+        img = read_image(img_or_path)
+        orig_h, orig_w = img.shape[:2]
+        x = self._upload(detector_preprocess_host(img, self.target_size))[None]
+        t.append(time.perf_counter())
+        score, geo = self.maps(x)
+        cands = self.candidates(score, geo)[0]
+        if self.nms == "device" and not return_maps:
+            boxes, count = device_lanms(cands, self.iou_threshold, self.max_boxes)
+            boxes9, valid = postprocess_boxes(
+                boxes, count, self.expand_ratio_w, self.expand_ratio_h,
+                orig_w / self.target_size, orig_h / self.target_size,
+                axis_aligned=self.axis_aligned_output,
+                remove_anomalies=self.remove_area_anomalies,
+                anomaly_sigma=self.anomaly_sigma_threshold,
+                anomaly_min_count=self.anomaly_min_box_count,
+            )
+            t.append(time.perf_counter())
+            boxes9, valid = boxes9.cpu().numpy(), valid.cpu().numpy()
+            output = boxes9[valid]
+            t.append(time.perf_counter())
+            names = ("prep", "forward", "fetch")
+        else:
+            t.append(time.perf_counter())
+            cands_np = cands.cpu().numpy()  # the one copy of the page's result
+            t.append(time.perf_counter())
+            nms_quads = locality_aware_nms(compact_topk(cands_np), self.iou_threshold)
+            t.append(time.perf_counter())
+            output = self._box_chain(nms_quads, orig_h, orig_w)
+            t.append(time.perf_counter())
+            names = ("prep", "forward", "fetch", "lanms", "boxes")
+        self.last_timings = {n: b - a for n, a, b in zip(names, t, t[1:])}
+        if profile:
+            print("  " + ", ".join(f"{n} {s:.3f}s" for n, s in self.last_timings.items())
+                  + f"; boxes out: {len(output)}")
+        return self._build_result(
+            output, sort_reading_order,
+            (score[0], geo[0]) if return_maps else None,
+        )
+
+    @torch.inference_mode()
+    def predict_batch(
+        self,
+        images,
+        batch_size: int = 4,
+        vis: bool = False,
+        profile: bool = False,
+        sort_reading_order: bool = False,
+    ) -> List[Dict[str, Any]]:
+        """Detect over many pages: one batched forward, decode and compaction
+        per chunk of ``batch_size`` pages on the device (every chunk launched
+        before the first is fetched), then the host LANMS and box chain per
+        page. Returns one result dict per page, as ``predict``. Short chunks
+        are not padded: nothing is compiled for a batch size."""
+        if vis:
+            raise NotImplementedError(VIS_NOT_PORTED)
+        loaded = [read_image(im) for im in images]
+        pending = []
+        for start in range(0, len(loaded), max(1, batch_size)):
+            chunk = loaded[start : start + max(1, batch_size)]
+            x = self._upload(np.stack([detector_preprocess_host(im, self.target_size) for im in chunk]))
+            pending.append((start, chunk, self.candidates(*self.maps(x))))
+        results = []
+        for start, chunk, cands in pending:
+            t0 = time.perf_counter()
+            cands_np = cands.cpu().numpy()
+            if profile:
+                print(f"  Batched detect sync [{start}:{start + len(chunk)}]: "
+                      f"{time.perf_counter() - t0:.3f}s")
+            for img, c in zip(chunk, cands_np):
+                nms_quads = locality_aware_nms(compact_topk(c), self.iou_threshold)
+                output = self._box_chain(nms_quads, *img.shape[:2])
+                results.append(self._build_result(output, sort_reading_order, None))
+        return results
+
+    def _build_result(self, output_quads: np.ndarray, sort_reading_order: bool, maps) -> Dict[str, Any]:
+        words = [
+            Word(
+                polygon=quad[:8].reshape(4, 2).tolist(),
+                detection_confidence=float(np.clip(quad[8], 0.0, 1.0)),
+            )
+            for quad in output_quads
+        ]
+        if sort_reading_order and words:
+            boxes = [quad_bbox_int(np.asarray(w.polygon, dtype=np.int32)) for w in words]
+            words = [words[i] for i in reading_order_permutation(boxes)]
+        return {
+            "page": Page(blocks=[Block(words=words)]),
+            "vis_image": None,
+            "score_map": None if maps is None else maps[0].cpu().numpy(),
+            "geo_map": None if maps is None else maps[1].permute(2, 0, 1).cpu().numpy(),
+        }

@@ -56,7 +56,6 @@ import torch
 
 from .ops.boxes import quad_bbox_int
 from .ops.crop_gather import crop_resize_pad_mm
-from .ops.decode import compact_candidates, decode_cells
 from .ops.image import crop_axis_aligned, detector_preprocess_host, read_image, resize_and_pad
 from .ops.lanms_torch import locality_aware_nms_parallel
 from .ops.postprocess_torch import postprocess_boxes
@@ -135,6 +134,11 @@ class FusedOCR:
         self.crop_source = "device" if crop_scale > 1 else crop_source
         self._orig_max_boxes = detector.max_boxes
         self._capacity_lock = threading.Lock()  # crop stages may overlap
+        # start_batch and finish_batch may run on two threads (a server's
+        # batcher and finisher): their launches take turns, so that one
+        # thread launches at a time and the launch counters stay exact
+        self._launch_lock = threading.Lock()
+        self._warmed_buckets: set = set()
         self.device = detector.device
         self.last_dropped = 0
         self.last_overflow = 0  # words over capacity on the last overflowing page
@@ -160,19 +164,15 @@ class FusedOCR:
         """Phase A on (B, target, target, 3) uint8 pages on the device → boxes9
         (B, max_boxes, 9), score −1 on invalid rows; ``scale_x``/``scale_y``
         are (B,) page/target ratios."""
-        det = self.detector
-        out = det.model((pages.to(det.dtype) / 255.0 - 0.5) / 0.5)
-        return self._boxes(out["score"][..., 0], out["geometry"], det.score_thresh, scale_x, scale_y)
+        score, geo = self.detector.maps(pages)
+        return self._boxes(score, geo, self.detector.score_thresh, scale_x, scale_y)
 
     def _boxes(self, score, geo, score_thresh, scale_x, scale_y) -> torch.Tensor:
         """EAST maps (B, h, w), (B, h, w, 8) → decode → NMS → postprocess →
         boxes9 (B, max_boxes, 9), score −1 on invalid rows. ``score_thresh``
         is one number or one per page."""
         det = self.detector
-        quads, scores, valid = decode_cells(
-            score, geo, score_thresh, det.quantization, 1.0 / det.score_geo_scale
-        )
-        cands = compact_candidates(quads, scores, valid, det.max_candidates)
+        cands = det.candidates(score, geo, score_thresh)
         merged, count = locality_aware_nms_parallel(cands, det.iou_threshold, det.max_boxes)
         boxes9, bvalid = postprocess_boxes(
             merged, count, det.expand_ratio_w, det.expand_ratio_h, scale_x, scale_y,
@@ -203,10 +203,9 @@ class FusedOCR:
         threshold (the thresholds are the page axis) → int counts."""
         det = self.detector
         n = len(thresholds)
-        x = torch.as_tensor(page).to(self.device)[None]
-        out = det.model((x.to(det.dtype) / 255.0 - 0.5) / 0.5)
+        score, geo = det.maps(torch.as_tensor(page).to(self.device)[None])
         boxes9 = self._boxes(
-            out["score"][..., 0].expand(n, -1, -1), out["geometry"].expand(n, -1, -1, -1),
+            score.expand(n, -1, -1), geo.expand(n, -1, -1, -1),
             torch.tensor(thresholds, dtype=torch.float32), scale_x, scale_y,
         )
         return self._box_extents(boxes9)[1].sum(dim=1).cpu().numpy().astype(int)
@@ -601,13 +600,15 @@ class FusedOCR:
     def start_batch(self, images: List[Any]):
         """Begin a batch: host prep and the first device launch now, the
         rest in ``finish_batch``. One start/finish pair per batch, FIFO; a
-        batch larger than ``batch_pages`` is split into chunks."""
+        batch larger than ``batch_pages`` is split into chunks. Start and
+        finish may be called from two threads: their launches take turns."""
         if len(images) > self.batch_pages:
             return ("multi", [self.start_batch(c) for c in self._chunks(images)])
         prep = self._prepare_chunk(images)
-        if self.crop_source == "native":
-            return ("native", self._dispatch_detect_prepared(prep))
-        return ("device", self._dispatch_prepared(prep))
+        with self._launch_lock:
+            if self.crop_source == "native":
+                return ("native", self._dispatch_detect_prepared(prep))
+            return ("device", self._dispatch_prepared(prep))
 
     def finish_batch(self, handle) -> List[Page]:
         """Complete a ``start_batch`` handle: wait for the device and build
@@ -616,5 +617,42 @@ class FusedOCR:
         if kind == "multi":
             return [page for sub in payload for page in self.finish_batch(sub)]
         if kind == "native":
-            return self._finish_rec_chunk(self._dispatch_rec_chunk(self._crop_stage(*payload)))
-        return self._finish_chunk(*payload)
+            crops = self._crop_stage(*payload)
+            with self._launch_lock:
+                rec = self._dispatch_rec_chunk(crops)
+            return self._finish_rec_chunk(rec)
+        with self._launch_lock:  # an overflowing page runs again
+            return self._finish_chunk(*payload)
+
+    def warm_next_bucket(self, block: bool = False):
+        """Run phase B once on a white strip at the next capacity bucket
+        above ``max_words`` (and at any smaller bucket not yet run), for each
+        chunk size 1 … ``batch_pages``, so that a page that grows the
+        capacity, or a short chunk, does not pay the first pass at a new
+        shape (cuDNN's plan choice and the allocator's growth; measured in
+        PERF.md) on a request's path. Only the server calls it, between
+        batches. The port compiles nothing ahead, and the warm runs on the
+        calling thread, taking its turn with the launches of
+        ``start_batch``/``finish_batch`` (so ``block`` changes nothing: the
+        call always returns when the warm is done). Returns the warmed
+        buckets, or None when there is nothing to warm: a pinned capacity
+        (it never grows), a capacity not yet known, the device-crop path, or
+        every bucket up to the next one warmed already."""
+        if not self._auto_capacity or self.max_words is None or self.crop_source != "native":
+            return None
+        nxt = next((c for c in self.CAPACITY_BUCKETS if c > self.max_words), None)
+        targets = [c for c in self.CAPACITY_BUCKETS
+                   if (nxt is None or c <= nxt) and c not in self._warmed_buckets]
+        if not targets:
+            return None
+        rec = self.recognizer
+        with self._launch_lock, torch.inference_mode():
+            for nw in targets:
+                for pages in range(1, self.batch_pages + 1):
+                    strip = torch.full((pages * nw, rec.img_h, rec.img_w, 3), 255,
+                                       dtype=torch.uint8, device=self.device)
+                    _Pending(*rec.recognize_tensor(
+                        strip, self.mode, self.beam_size, self.alpha, self.temperature
+                    )).wait()
+                self._warmed_buckets.add(nw)
+        return targets

@@ -1,10 +1,12 @@
-"""Build the CUDA kernels of ``csrc/`` at first use and load them with ctypes.
+"""Build the native sources of ``csrc/`` at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
-``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<digest>.so``
-at the root of the checkout; the digest covers the source and the flags, so an
-edited source never loads a stale library. ``build()`` starts one ``nvcc`` per
-source, all at once. Nothing here runs when the package is imported.
+``nvcc`` for Hopper (``sm_90a``); ``csrc/lanms.cpp``, the host LANMS, is
+compiled by the host C++ compiler (``c++``, else ``g++``). Each goes into
+``build/kernels/lib<name>-<digest>.so`` at the root of the checkout; the
+digest covers the source and the flags, so an edited source never loads a
+stale library. ``build()`` starts one compiler per source, all at once.
+Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -20,13 +22,17 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_step", "quad_iou")
+CUDA_SOURCES = ("attention_step", "quad_iou")
+HOST_SOURCES = ("lanms",)
+SOURCES = CUDA_SOURCES + HOST_SOURCES
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
 # per-source extra flags (quad_iou.cu explains its -fmad=false)
 EXTRA_FLAGS = {"quad_iou": ["-fmad=false"]}
+# the JAX package's native/Makefile flags; no -march=native (lanms.cpp says why)
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -44,51 +50,77 @@ def nvcc() -> str:
     return found
 
 
+def host_cxx() -> str:
+    """The host C++ compiler from PATH: ``c++``, else ``g++``."""
+    found = shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError(
+            "no host C++ compiler (c++ or g++) on PATH: the host LANMS of "
+            "manuscript_tpu_torch (csrc/lanms.cpp) is built from source at first use"
+        )
+    return found
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _flags(name: str):
+    if name in HOST_SOURCES:
+        return list(HOST_FLAGS)
     return FLAGS + EXTRA_FLAGS.get(name, [])
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
+def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, float]:
     """Compile every named source that has no library yet, all in parallel.
-    Returns the wall seconds; raises with nvcc's output on a failure.
-    ``verbose`` adds ``-Xptxas -v`` and prints what ptxas reports."""
+    Returns each compiled source's seconds from the common start to the end
+    of its compiler; raises with the compiler's output on a failure.
+    ``verbose`` adds ``-Xptxas -v`` to nvcc and prints what it reports."""
     t0 = time.perf_counter()
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
-        return 0.0
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    exe = nvcc()
-    procs = []
+    # every compiler is found before any starts
+    compilers = {n: host_cxx() if n in HOST_SOURCES else nvcc() for n in todo}
+    procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *_flags(name), *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    failed = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        if verbose and log.strip():
-            print(f"[nvcc {name}]\n{log.strip()}")
-        os.replace(tmp, out)
+        extra = ["-Xptxas", "-v"] if verbose and name not in HOST_SOURCES else []
+        cmd = [compilers[name], *_flags(name), *extra, "-o", str(tmp), str(_source(name))]
+        log = open(tmp.with_suffix(".log"), "w+")
+        procs[name] = (out, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    failed, seconds = [], {}
+    while len(seconds) < len(procs):
+        for name, (out, tmp, log, proc) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.unlink(log.name)
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{text}")
+                continue
+            if verbose and text.strip():
+                print(f"[{name}]\n{text.strip()}")
+            os.replace(tmp, out)
+        time.sleep(0.01)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
+        raise RuntimeError("build failed for " + "\n".join(failed))
+    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         path = library_path(name)

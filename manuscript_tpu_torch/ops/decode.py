@@ -1,8 +1,9 @@
 """Quad decoding from EAST score/geometry maps (counterpart of
-``manuscript_tpu/ops/decode.py``: ``decode_cells_jax`` and
-``compact_candidates``), as fixed-shape tensor ops on the maps' device.
-Both take an optional leading page axis: a chunk of pages (or one page's maps
-under several thresholds) decodes in one pass, each page on its own.
+``manuscript_tpu/ops/decode.py``): ``decode_cells`` and
+``compact_candidates`` as fixed-shape tensor ops on the maps' device, both
+with an optional leading page axis (a chunk of pages, or one page's maps
+under several thresholds, decodes in one pass, each page on its own); and on
+the host ``compact_topk`` and ``decode_quads_numpy``.
 
 A q×q cell is a candidate when any of its pixels clears the threshold; its
 score and 8 geometry offsets are sampled at the cell-centre pixel, and vertex
@@ -90,3 +91,36 @@ def compact_candidates(
     live = torch.arange(k, device=dev)[None, :] < within.sum(dim=1, keepdim=True)
     out[..., 8] = torch.where(live, out[..., 8], torch.full_like(out[..., 8], -1.0))
     return out
+
+
+def compact_topk(cands: np.ndarray) -> np.ndarray:
+    """Host: the candidate rows without the score −1 padding, float32."""
+    cands = np.asarray(cands)
+    return cands[cands[:, 8] >= 0.0].astype(np.float32)
+
+
+def decode_quads_numpy(
+    score_map: np.ndarray,
+    geo_map: np.ndarray,
+    score_thresh: float,
+    scale: float,
+    quantization: int = 1,
+) -> np.ndarray:
+    """Host decode of one page's maps with the semantics above → (n, 9).
+    ``score_map`` (H, W) or (1, H, W), ``geo_map`` (H, W, 8). With q > 1 a
+    pixel above the threshold selects its cell's centre pixel, once."""
+    if score_map.ndim == 3 and score_map.shape[0] == 1:
+        score_map = score_map[0]
+    ys, xs = np.where(score_map > score_thresh)
+    if len(ys) == 0:
+        return np.zeros((0, 9), dtype=np.float32)
+    if quantization > 1:
+        q = quantization
+        coords = np.unique(np.column_stack([(ys // q) * q + q // 2, (xs // q) * q + q // 2]), axis=0)
+        ys = np.minimum(coords[:, 0], score_map.shape[0] - 1)
+        xs = np.minimum(coords[:, 1], score_map.shape[1] - 1)
+    offs = geo_map[ys, xs]  # (n, 8)
+    vx = (xs[:, None] + offs[:, 0::2]) * scale
+    vy = (ys[:, None] + offs[:, 1::2]) * scale
+    quads = np.stack([vx, vy], axis=-1).reshape(len(ys), 8)
+    return np.concatenate([quads, score_map[ys, xs][:, None]], axis=1).astype(np.float32)

@@ -1,7 +1,8 @@
-"""Host polygon IoU in numpy (counterpart of ``manuscript_tpu/ops/geometry.py``:
-``polygon_area``, ``compute_intersection``, ``clip_polygon``,
-``polygon_intersection``, ``polygon_iou``), the float64 Sutherland–Hodgman
-clip that detection F1 scores with. Polygons are (N, 2) arrays of (x, y)."""
+"""Host polygon geometry in numpy (counterpart of
+``manuscript_tpu/ops/geometry.py``): the float64 Sutherland–Hodgman IoU that
+detection F1 scores with and the host LANMS merges with, the vertex
+re-ordering of the LANMS merge, batched areas and the point-in-polygon test.
+Polygons are (N, 2) arrays of (x, y)."""
 
 from __future__ import annotations
 
@@ -81,3 +82,40 @@ def polygon_iou(poly1: np.ndarray, poly2: np.ndarray) -> float:
     if union <= 0:
         return 0.0
     return inter_area / union
+
+
+def should_merge(poly1: np.ndarray, poly2: np.ndarray, iou_threshold: float) -> bool:
+    return polygon_iou(poly1, poly2) > iou_threshold
+
+
+def normalize_polygon(ref: np.ndarray, poly: np.ndarray) -> np.ndarray:
+    """Re-index ``poly``'s 4 vertices (cyclic shifts, both orientations) to
+    the least total squared distance to ``ref``'s vertex order; forward
+    orders come first, so they win ties."""
+    ref = np.asarray(ref, dtype=np.float64)
+    poly = np.asarray(poly, dtype=np.float64)
+    idx = np.arange(4)
+    orders = np.stack([(s + idx) % 4 for s in range(4)] + [(s - idx) % 4 for s in range(4)])
+    cands = poly[orders]  # (8, 4, 2)
+    d = np.sum((cands - ref[None]) ** 2, axis=(1, 2))
+    return cands[int(np.argmin(d))].copy()
+
+
+def polygon_area_batch(polys: np.ndarray) -> np.ndarray:
+    """Shoelace areas of a batch of polygons (N, V, 2) → (N,)."""
+    polys = np.asarray(polys, dtype=np.float64)
+    if polys.size == 0:
+        return np.zeros((0,), dtype=np.float64)
+    x, y = polys[..., 0], polys[..., 1]
+    return 0.5 * np.abs(np.sum(x * np.roll(y, -1, axis=1) - y * np.roll(x, -1, axis=1), axis=1))
+
+
+def point_in_polygon(points: np.ndarray, poly: np.ndarray, eps: float = 1e-9) -> np.ndarray:
+    """Whether each point (N, 2) lies inside or on the convex polygon (V, 2),
+    whichever its winding."""
+    poly = np.asarray(poly, dtype=np.float64)
+    points = np.asarray(points, dtype=np.float64)
+    edge = np.roll(poly, -1, axis=0) - poly  # (V, 2)
+    rel = points[:, None, :] - poly[None, :, :]  # (N, V, 2)
+    cross = edge[None, :, 0] * rel[..., 1] - edge[None, :, 1] * rel[..., 0]
+    return np.all(cross >= -eps, axis=1) | np.all(cross <= eps, axis=1)

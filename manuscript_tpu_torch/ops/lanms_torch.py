@@ -1,23 +1,30 @@
-"""Parallel locality-aware NMS on the device (counterpart of
+"""Locality-aware NMS on the device (counterpart of
 ``manuscript_tpu/ops/lanms_jax.py``: ``_normalize_quad``,
-``locality_aware_nms_parallel`` and ``_standard_nms``).
+``locality_aware_nms_parallel``, ``locality_aware_nms_jax`` and
+``_standard_nms``).
 
-1. Candidates are sorted by x0 (stable; invalid rows last). Each is merged
-   into the chain of its PREDECESSOR when their IoU clears the threshold
-   (the JAX package's documented delta from the host's running-average
-   merge), and each chain becomes one score-weighted average quad.
+1. Candidates are sorted by x0 (stable; invalid rows last).
+   ``locality_aware_nms_parallel`` (the fused pipeline's) merges each into
+   the chain of its PREDECESSOR when their IoU clears the threshold (the JAX
+   package's documented delta from the host's running-average merge), and
+   each chain becomes one score-weighted average quad.
+   ``locality_aware_nms`` (the scan LANMS, ``EAST(nms="device")``) merges
+   each into the RUNNING merged quad, as the host LANMS does, in one
+   sequential walk: the CUDA kernel K3 (``lanms_merge_scan`` in
+   ``csrc/quad_iou.cu``) on the card, a loop over the rows on the CPU.
 2. Exact greedy NMS over the merged quads as a fixpoint: a bounding-box upper
    bound on IoU picks the pairs that could suppress, up to 16·M of them are
    clipped exactly, pairs beyond that capacity keep the conservative bound,
    and kept[i] = valid[i] ∧ ¬∃ j<i: kept[j] ∧ IoU[j,i] > t is iterated until
    it stops changing (at most M sweeps; one host sync per sweep).
 
-Both functions take an optional leading page axis (the JAX package's
+The functions take an optional leading page axis (the JAX package's
 ``vmap``): every page keeps its own candidate order, segments, 16·M pair
-slots and fixpoint, and the sweeps go on until no page changes. Both IoU
-calls go through ``ops.quad_iou.quad_iou_gather``: one launch each for the
-whole chunk on the card, with int32 pair indices offset by each page's
-start and, for the compacted pairs, one live count per page on the device.
+slots and fixpoint, and the sweeps go on until no page changes. The IoU
+calls of the parallel merge and of the NMS go through
+``ops.quad_iou.quad_iou_gather``: one launch each for the whole chunk on the
+card, with int32 pair indices offset by each page's start and, for the
+compacted pairs, one live count per page on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from .quad_iou import quad_iou_gather
+from . import _build
+from .quad_iou import _lib, quad_iou_gather, quad_iou_pairs_plain
+
+launches = 0  # K3 (lanms_merge_scan) kernel launches, for proof of the route
 
 _IDX = torch.arange(4)
 _ORDERS = torch.cat(
@@ -199,4 +209,95 @@ def locality_aware_nms_parallel(
     )
     n = torch.clamp(seg_valid.sum(dim=1), max=max_out)
     merged_valid = torch.arange(max_out, device=dev)[None, :] < n[:, None]
+    return _standard_nms(out_p, out_s, merged_valid, iou_threshold)
+
+
+def lanms_merge_scan_plain(rows: torch.Tensor, iou_threshold: float, max_out: int):
+    """The merge walk of the scan LANMS, one row after another in torch ops
+    (the plain twin of K3). ``rows`` (B, K, 9): each page's candidates
+    sorted by x0, padding (score < 0) last → (out_p (B, max_out, 4, 2), zeros
+    past the count; out_s (B, max_out), −inf past it; count (B,) int32, the
+    number of closed quads, which may exceed max_out: past it every quad
+    lands in the last slot)."""
+    b, k = rows.shape[:2]
+    dev, dt = rows.device, rows.dtype
+    out_p = torch.zeros(b, max_out, 4, 2, dtype=dt, device=dev)
+    out_s = torch.full((b, max_out), -float("inf"), dtype=dt, device=dev)
+    count = torch.zeros(b, dtype=torch.int32, device=dev)
+    for page in range(b):
+        quads, scores = rows[page, :, :8].reshape(k, 4, 2), rows[page, :, 8]
+        cur_p = cur_s = cur_w = None
+        m = 0
+        # padding rows change nothing: only the live rows are walked
+        for i in torch.nonzero(scores >= 0.0).flatten().tolist():
+            q, s = quads[i], scores[i]
+            if cur_p is not None:
+                if bool(quad_iou_pairs_plain(q[None], cur_p[None])[0] > iou_threshold):
+                    aligned = _normalize_quad(cur_p[None], q[None])[0]
+                    tot = cur_w + s
+                    den = torch.where(tot == 0, torch.ones_like(tot), tot)
+                    cur_p = (cur_p * cur_w + aligned * s) / den
+                    cur_s, cur_w = torch.maximum(cur_s, s), tot
+                    continue
+                slot = min(m, max_out - 1)
+                out_p[page, slot], out_s[page, slot] = cur_p, cur_s
+                m += 1
+            cur_p, cur_s, cur_w = q, s, s
+        if cur_p is not None:
+            slot = min(m, max_out - 1)
+            out_p[page, slot], out_s[page, slot] = cur_p, cur_s
+            m += 1
+        count[page] = m
+    return out_p, out_s, count
+
+
+def lanms_merge_scan_cuda(rows: torch.Tensor, iou_threshold: float, max_out: int):
+    """K3 on the card: one launch, one block per page."""
+    global launches
+    if rows.device.type != "cuda":
+        raise ValueError(f"lanms_merge_scan: rows are on {rows.device}, not CUDA")
+    if rows.dtype != torch.float32:
+        raise TypeError(f"lanms_merge_scan: rows are {rows.dtype}, needs float32")
+    if rows.dim() != 3 or rows.shape[2] != 9 or not rows.is_contiguous():
+        raise ValueError(
+            f"lanms_merge_scan: rows must be contiguous (B, K, 9), got {tuple(rows.shape)}"
+        )
+    if max_out < 1:
+        raise ValueError(f"lanms_merge_scan: max_out must be >= 1, got {max_out}")
+    b, k = rows.shape[:2]
+    out_p = torch.empty(b, max_out, 4, 2, dtype=torch.float32, device=rows.device)
+    out_s = torch.empty(b, max_out, dtype=torch.float32, device=rows.device)
+    count = torch.empty(b, dtype=torch.int32, device=rows.device)
+    status = _lib().lanms_merge_scan_launch(
+        rows.data_ptr(), b, k, float(iou_threshold), max_out, out_p.data_ptr(),
+        out_s.data_ptr(), count.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    _build.check(status, "lanms_merge_scan")
+    launches += 1
+    return out_p, out_s, count
+
+
+def lanms_merge_scan(rows: torch.Tensor, iou_threshold: float, max_out: int):
+    """Plain torch ops for CPU tensors, the CUDA kernel K3 otherwise."""
+    if rows.device.type == "cpu":
+        return lanms_merge_scan_plain(rows, iou_threshold, max_out)
+    return lanms_merge_scan_cuda(rows, iou_threshold, max_out)
+
+
+def locality_aware_nms(
+    cands: torch.Tensor, iou_threshold: float, max_out: int = 1024
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan LANMS: cands ([B,] K, 9) rows [x0..y3, score], score < 0 =
+    padding → (boxes ([B,] max_out, 9) score-descending, zeros past count;
+    count ([B,])), each candidate merged into the running merged quad."""
+    if cands.dim() == 2:
+        out, n = locality_aware_nms(cands[None], iou_threshold, max_out)
+        return out[0], n[0]
+    b = cands.shape[0]
+    scores = cands[..., 8]
+    sort_key = torch.where(scores >= 0.0, cands[..., 0], torch.full_like(scores, float("inf")))
+    order = torch.sort(sort_key, dim=1, stable=True).indices
+    rows = cands[torch.arange(b, device=cands.device)[:, None], order].contiguous()
+    out_p, out_s, count = lanms_merge_scan(rows, iou_threshold, max_out)
+    merged_valid = torch.arange(max_out, device=cands.device)[None, :] < count[:, None]
     return _standard_nms(out_p, out_s, merged_valid, iou_threshold)

@@ -1,3 +1,4 @@
+from .charset import decode_tokens, default_charset, load_charset
 from .trba import TRBA
 
-__all__ = ["TRBA"]
+__all__ = ["TRBA", "decode_tokens", "default_charset", "load_charset"]

@@ -1,14 +1,15 @@
 """Character set of the TRBA recognizer and the token-id → text decode.
 
-The port's own copy of what the page path uses from
+The port's own copy of what inference uses from
 ``manuscript_tpu/recognizers/charset.py``: the special tokens, the default
-194-token charset (index-compatible with the released weights), and
-``decode_tokens``.
+194-token charset (index-compatible with the released weights),
+``load_charset`` and ``decode_tokens``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 PAD_TOKEN = "<PAD>"
 SOS_TOKEN = "<SOS>"
@@ -33,6 +34,17 @@ def default_charset() -> List[str]:
     tokens += list("ѣѢіІѳѲѵѴѫѪѭѬѯѮѱѰѡѠѕЅѧѦѩѨ")
     tokens += list(".,:;!?-–—…«»()[]{}\"'`/\\|_+=*^%$#@&<>~№")
     return tokens
+
+
+def load_charset(charset_path: Union[str, Path]) -> Tuple[List[str], Dict[str, int]]:
+    """A charset file, one token a line (blank lines skipped) → (itos, stoi)."""
+    itos: List[str] = []
+    with open(charset_path, "r", encoding="utf-8") as f:
+        for line in f:
+            tok = line.rstrip("\n")
+            if tok:
+                itos.append(tok)
+    return itos, {s: i for i, s in enumerate(itos)}
 
 
 def decode_tokens(

@@ -1,14 +1,21 @@
 """TRBA recognizer wrapper (counterpart of ``manuscript_tpu/recognizers/trba.py``).
 
-Loads a flax ``.msgpack`` checkpoint with the port's own reader — its
-embedded charset (itos) and config (max_len, hidden_size, img_h, img_w,
-cnn_stage_plan) are adopted — or, with ``allow_random_init=True``, fills the
-model from a seeded generator. It never downloads anything. The CNN and
-BiLSTMs compute in ``dtype``; the decoder stays float32.
+Weights: a flax ``.msgpack`` checkpoint read with the port's own reader,
+given as ``model_path`` (or its alias ``weights_path``) or found in
+``~/.manuscript_tpu/trba``; else, when ``allow_random_init`` (by default
+``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``) allows it, weights from a seeded
+generator. Nothing is ever downloaded. The model config (max_len,
+hidden_size, img_h, img_w, cnn_stage_plan) comes from ``config_path``, else
+from a sidecar ``<checkpoint>.json`` or ``config.json`` beside the
+checkpoint, else from the checkpoint itself; the charset from
+``charset_path``, else from the checkpoint, else the default one. The CNN
+and BiLSTMs compute in ``dtype``; the decoder stays float32.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -18,8 +25,22 @@ import torch
 from ..models.trba import TRBAModel
 from ..ops.image import read_image, resize_and_pad, to_rgb_u8
 from ..utils.device import resolve_device
-from ..utils.weights import init_random_, msgpack_restore, params_from_jax
-from .charset import BLANK_TOKEN, EOS_TOKEN, PAD_TOKEN, SOS_TOKEN, decode_tokens, default_charset
+from ..utils.weights import (
+    allow_random_init_default,
+    cached_checkpoint,
+    init_random_,
+    msgpack_restore,
+    params_from_jax,
+)
+from .charset import (
+    BLANK_TOKEN,
+    EOS_TOKEN,
+    PAD_TOKEN,
+    SOS_TOKEN,
+    decode_tokens,
+    default_charset,
+    load_charset,
+)
 
 
 def sequence_confidence(logits: torch.Tensor, preds: torch.Tensor, eos_id: int):
@@ -37,40 +58,82 @@ def sequence_confidence(logits: torch.Tensor, preds: torch.Tensor, eos_id: int):
     return preds, conf
 
 
+def _config_beside(model_path: Union[str, Path]) -> Optional[Path]:
+    """``<checkpoint>.json``, else ``config.json`` in its folder, if present."""
+    wf = Path(model_path)
+    return next((c for c in (wf.with_suffix(".json"), wf.parent / "config.json") if c.exists()), None)
+
+
 class TRBA:
     def __init__(
         self,
         model_path: Optional[Union[str, Path]] = None,
+        charset_path: Optional[Union[str, Path]] = None,
+        config_path: Optional[Union[str, Path]] = None,
         device: Optional[Union[str, torch.device]] = None,
         dtype: torch.dtype = torch.float32,
-        allow_random_init: bool = False,
+        allow_random_init: Optional[bool] = None,
         seed: int = 0,
         max_length: int = 25,
         hidden_size: int = 256,
         img_h: int = 64,
         img_w: int = 256,
-        cnn_stage_plan: str = "full",
+        cnn_stage_plan: Optional[str] = None,
+        **kwargs: Any,
     ):
+        """``max_length``, ``hidden_size``, ``img_h`` and ``img_w`` apply
+        where the config has no value; ``cnn_stage_plan`` given here wins
+        over the config ("full" where neither has one)."""
         self.device = resolve_device(device)
-        raw: Dict[str, Any] = {}
-        if model_path is not None:
-            raw = msgpack_restore(Path(model_path))
-        elif not allow_random_init:
+        weights_path = kwargs.pop("weights_path", None)
+        if kwargs:
+            raise TypeError(f"Unexpected keyword argument(s): {', '.join(kwargs)}")
+        if weights_path is not None and model_path is not None:
+            if os.path.abspath(os.fspath(weights_path)) != os.path.abspath(os.fspath(model_path)):
+                raise ValueError("Provide either model_path or weights_path, not both.")
+        model_path = model_path or weights_path
+        if model_path is not None and not os.path.exists(model_path):
+            raise FileNotFoundError(f"Model checkpoint not found: {model_path}")
+        if model_path is None:
+            model_path = cached_checkpoint("trba")
+        if allow_random_init is None:
+            allow_random_init = allow_random_init_default()
+        if model_path is None and not allow_random_init:
             raise ValueError(
-                "TRBA needs model_path=, or allow_random_init=True for untrained weights"
+                "TRBA found no checkpoint (none given, none in ~/.manuscript_tpu/trba): "
+                "pass model_path=, or allow_random_init=True (or set "
+                "MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) for untrained weights"
             )
-        config = raw.get("config") or {}
+        if config_path is None and model_path is not None:
+            config_path = _config_beside(model_path)
+        if config_path is not None and not os.path.exists(config_path):
+            raise FileNotFoundError(f"Config file not found: {config_path}")
+
+        raw: Dict[str, Any] = msgpack_restore(Path(model_path)) if model_path is not None else {}
+        if config_path is not None:
+            config = json.loads(Path(config_path).read_text(encoding="utf-8"))
+        else:
+            config = raw.get("config") if isinstance(raw.get("config"), dict) else {}
         self.model_path = model_path
+        self.config_path = config_path
+        self.allow_random_init = allow_random_init
         self.max_length = config.get("max_len", max_length)
         self.hidden_size = config.get("hidden_size", hidden_size)
         self.img_h = config.get("img_h", img_h)
         self.img_w = config.get("img_w", img_w)
-        self.cnn_stage_plan = config.get("cnn_stage_plan", cnn_stage_plan)
-        itos = raw.get("itos")
-        if isinstance(itos, dict):  # flax stores lists as {"0": ..., "1": ...}
-            itos = [itos[key] for key in sorted(itos, key=int)]
-        self.itos = [str(s) for s in itos] if itos is not None else default_charset()
-        stoi = {s: i for i, s in enumerate(self.itos)}
+        self.cnn_stage_plan = cnn_stage_plan or config.get("cnn_stage_plan", "full")
+
+        if charset_path is not None:
+            if not os.path.exists(charset_path):
+                raise FileNotFoundError(f"Charset file not found: {charset_path}")
+            self.itos, stoi = load_charset(charset_path)
+        else:
+            itos = raw.get("itos")
+            if isinstance(itos, dict):  # flax stores lists as {"0": ..., "1": ...}
+                itos = [itos[key] for key in sorted(itos, key=int)]
+            self.itos = [str(s) for s in itos] if itos is not None else default_charset()
+            stoi = {s: i for i, s in enumerate(self.itos)}
+        self.charset_path = charset_path
         self.pad_id, self.sos_id = stoi[PAD_TOKEN], stoi[SOS_TOKEN]
         self.eos_id, self.blank_id = stoi[EOS_TOKEN], stoi.get(BLANK_TOKEN)
 
@@ -123,16 +186,37 @@ class TRBA:
     def decode(self, ids: Sequence[int]) -> str:
         return decode_tokens(ids, self.itos, self.pad_id, self.eos_id, self.blank_id)
 
-    def predict(self, images: Union[Any, List[Any]], mode: str = "beam", **decode) -> List[Dict]:
-        """Recognize one image or a list → [{"text", "confidence"}]."""
+    def _preprocess_one(self, image) -> np.ndarray:
+        if isinstance(image, (str, Path)):
+            if not os.path.exists(str(image)):
+                raise FileNotFoundError(f"Image file not found: {image}")
+            img = read_image(image)
+        else:
+            img = to_rgb_u8(np.asarray(read_image(image)))
+        return resize_and_pad(img, self.img_h, self.img_w)
+
+    def predict(
+        self,
+        images: Union[Any, List[Any]],
+        batch_size: int = 32,
+        mode: str = "beam",
+        beam_size: int = 8,
+        temperature: float = 1.7,
+        alpha: float = 0.9,
+    ) -> List[Dict[str, Any]]:
+        """Recognize one image or a list (arrays, paths or PIL images) →
+        [{"text", "confidence"}], ``batch_size`` crops per device pass. A
+        short last chunk is not padded: each row's confidence depends on its
+        own steps only."""
+        if mode not in ("beam", "greedy"):
+            raise ValueError(f"Unknown mode: {mode}")
         images = images if isinstance(images, list) else [images]
-        if not images:
-            return []
-        batch = np.stack([
-            resize_and_pad(to_rgb_u8(read_image(im)), self.img_h, self.img_w) for im in images
-        ])
-        preds, confs = self.recognize_u8(batch, mode, **decode)
-        return [
-            {"text": self.decode(p), "confidence": float(np.clip(c, 0.0, 1.0))}
-            for p, c in zip(preds, confs)
-        ]
+        results: List[Dict[str, Any]] = []
+        for i in range(0, len(images), max(1, batch_size)):
+            batch = np.stack([self._preprocess_one(im) for im in images[i : i + max(1, batch_size)]])
+            preds, confs = self.recognize_u8(batch, mode, beam_size, alpha, temperature)
+            results.extend(
+                {"text": self.decode(p), "confidence": float(np.clip(c, 0.0, 1.0))}
+                for p, c in zip(preds, confs)
+            )
+        return results

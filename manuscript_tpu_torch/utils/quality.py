@@ -1,8 +1,8 @@
 """Quality with trained weights (counterpart of
 ``manuscript_tpu/utils/quality.py``): the committed synthetic-trained micro
 checkpoints of the JAX package (``manuscript_tpu/configs/quality/``, read as
-data) score the port's ``Pipeline.process_batch`` on held-out synthetic
-pages with
+data) score the port's ``Pipeline.process_batch`` (or, ``use_fused=False``,
+the classic ``Pipeline.predict``) on held-out synthetic pages with
 
 * detector F1 at IoU 0.5 (``utils.metrics.compute_f1``), and
 * end-to-end corpus CER: ground-truth words matched greedily to predictions
@@ -126,21 +126,21 @@ def evaluate_quality(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict[str, float]:
     """End-to-end quality of the micro models on held-out pages through
-    ``Pipeline.process_batch`` (``max_words=64``). ``models`` are an (EAST,
-    TRBA) pair (default: ``load_quality_models(device)``)."""
-    if not use_fused:
-        raise NotImplementedError(
-            "use_fused=False needs the classic host path (EAST.predict with the "
-            "host LANMS), which the port does not have yet: ROADMAP §1 item 4"
-        )
+    ``Pipeline.process_batch`` (``max_words=64``), or with ``use_fused=False``
+    through the classic path, ``Pipeline(fused=False).predict`` page by page
+    (full-resolution host crops of the host LANMS's boxes). ``models`` are an
+    (EAST, TRBA) pair (default: ``load_quality_models(device)``)."""
     from ..pipeline import Pipeline
     from .synthetic import eval_pages
 
     east, trba = models if models is not None else load_quality_models(device)
     pages = eval_pages(n_pages, seed=seed)
     pipe = Pipeline(
-        detector=east, recognizer=trba, device=east.device, mode=mode, max_words=64,
-        crop_scale=crop_scale, crop_source=crop_source,
+        detector=east, recognizer=trba, device=east.device, fused=use_fused, mode=mode,
+        max_words=64, crop_scale=crop_scale, crop_source=crop_source,
     )
-    pred = pipe.process_batch([p for p, _ in pages])
+    if use_fused:
+        pred = pipe.process_batch([p for p, _ in pages])
+    else:
+        pred = [pipe.predict(p) for p, _ in pages]
     return score_pages(pred, [gt for _, gt in pages])

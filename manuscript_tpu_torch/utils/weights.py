@@ -14,13 +14,17 @@ conversion, and seeded random init.
 * ``init_random_`` fills a model from a seeded ``torch.Generator`` (LeCun
   normal kernels, zero biases, identity BatchNorm) — the full-width models
   have no trained weights in the repository.
+* ``cached_checkpoint`` finds a ``.msgpack`` checkpoint in the user's cache
+  (``~/.manuscript_tpu/<name>``), and ``allow_random_init_default`` reads
+  ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT``; nothing is ever downloaded.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -165,3 +169,19 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
             val = torch.randn(t.shape, generator=gen) / np.sqrt(fan_in)
         t.copy_(val.to(t.dtype))
     return model
+
+
+def cached_checkpoint(name: str) -> Optional[Path]:
+    """The first ``*.msgpack`` (sorted, subfolders included) under
+    ``~/.manuscript_tpu/<name>``, or None."""
+    cache = Path.home() / ".manuscript_tpu" / name
+    hits = sorted(cache.glob("**/*.msgpack")) if cache.exists() else []
+    return hits[0] if hits else None
+
+
+def allow_random_init_default() -> bool:
+    """Whether a wrapper given no checkpoint, and finding none in the cache,
+    may fill its model with random weights: only when
+    MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1, so that a user gets an error rather
+    than plausible-looking garbage."""
+    return os.environ.get("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT") == "1"

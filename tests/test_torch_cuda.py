@@ -134,3 +134,60 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         k1.attention_step(*args, beam=0)
     with pytest.raises(TypeError):
         k1.attention_step(*args[:4], args[4].long(), *args[5:], beam=2)
+
+
+def _candidate_field(rng, n, words=40, pad=0, size=800.0):
+    """Jittered copies of word boxes with scores in [0.5, 1), shuffled, and
+    ``pad`` padding rows (score −1)."""
+    c = rng.uniform(0, size, (words, 2))
+    wh = np.stack([rng.uniform(40, 160, words), rng.uniform(15, 40, words)], 1)
+    base = np.concatenate([c - wh / 2, c + [1, -1] * wh / 2, c + wh / 2, c + [-1, 1] * wh / 2], 1)
+    rows = base[rng.integers(0, words, n)] + rng.normal(0, 2.0, (n, 8))
+    rows = np.concatenate([rows, rng.uniform(0.5, 1, (n, 1))], 1)
+    rows = np.concatenate([rows, np.full((pad, 9), -1.0)])
+    return rows[rng.permutation(len(rows))].astype(np.float32)
+
+
+@pytest.mark.parametrize("pages,n,pad,max_out", [(1, 2048, 0, 1024), (3, 500, 300, 64), (2, 400, 0, 4)])
+def test_lanms_merge_scan_kernel_matches_plain(cuda, pages, n, pad, max_out):
+    """K3 against its plain twin on x0-sorted fields: equal counts (also
+    past max_out), quads within 1e-3 px, equal scores; one launch."""
+    from manuscript_tpu_torch.ops import lanms_torch as k3
+
+    rng = np.random.default_rng(n)
+    cands = torch.from_numpy(np.stack([_candidate_field(rng, n, pad=pad) for _ in range(pages)]))
+    key = torch.where(cands[..., 8] >= 0, cands[..., 0], torch.full_like(cands[..., 0], float("inf")))
+    rows = cands[torch.arange(pages)[:, None], torch.sort(key, dim=1, stable=True).indices].contiguous()
+    before = k3.launches
+    pk, sk, mk = k3.lanms_merge_scan(rows.to(cuda), 0.2, max_out)
+    assert k3.launches == before + 1
+    pp, sp, mp = k3.lanms_merge_scan_plain(rows, 0.2, max_out)
+    assert torch.equal(mk.cpu(), mp)
+    torch.testing.assert_close(pk.cpu(), pp, atol=1e-3, rtol=0)
+    torch.testing.assert_close(sk.cpu(), sp, atol=0, rtol=0)
+    got, n_got = k3.locality_aware_nms(cands.to(cuda), 0.2, max_out)
+    want, n_want = k3.locality_aware_nms(cands, 0.2, max_out)
+    assert torch.equal(n_got.cpu(), n_want)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+
+
+def test_lanms_merge_scan_refuses_what_it_does_not_take(cuda):
+    from manuscript_tpu_torch.ops import lanms_torch as k3
+
+    rows = torch.zeros(1, 8, 9, device=cuda)
+    with pytest.raises(TypeError):
+        k3.lanms_merge_scan(rows.double(), 0.2, 4)
+    with pytest.raises(ValueError):
+        k3.lanms_merge_scan(rows[:, :, :8].contiguous(), 0.2, 4)
+    with pytest.raises(ValueError):
+        k3.lanms_merge_scan(rows, 0.2, 0)
+
+
+def test_host_lanms_library_builds_and_loads(cuda):
+    """The C++ LANMS builds with the host compiler of the card's machine and
+    gives the numpy twin's rows."""
+    from manuscript_tpu_torch.ops import lanms
+
+    rows = _candidate_field(np.random.default_rng(3), 400)
+    np.testing.assert_array_equal(lanms.locality_aware_nms(rows, 0.2),
+                                  lanms.locality_aware_nms_numpy(rows, 0.2))

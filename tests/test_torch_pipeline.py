@@ -116,7 +116,11 @@ def test_default_device_needs_a_card(monkeypatch):
         TRBA(device="cuda", allow_random_init=True)
 
 
-def test_wrappers_never_init_silently():
+def test_wrappers_never_init_silently(monkeypatch, tmp_path):
+    # no checkpoint given or cached, and random weights not allowed by the
+    # environment (tests/conftest.py allows them for the JAX package's tests)
+    monkeypatch.delenv("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT")
+    monkeypatch.setenv("HOME", str(tmp_path))
     with pytest.raises(ValueError, match="allow_random_init"):
         EAST(device="cpu")
     with pytest.raises(ValueError, match="allow_random_init"):

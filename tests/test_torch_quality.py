@@ -6,7 +6,8 @@ the card to.
 
 ``manuscript_tpu_torch/configs/quality_reference.json`` holds the JAX
 package's ``evaluate_quality(n_pages=8, seed=9000, mode="beam")`` for native
-crops, device crops and ``crop_scale=2``, on the CPU. It is written by
+crops, device crops, ``crop_scale=2`` and the classic path
+(``use_fused=False``), on the CPU. It is written by
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_quality.py
 
@@ -34,6 +35,7 @@ REFERENCE_CALLS = {
     "native": {},
     "device": {"crop_source": "device"},
     "crop_scale_2": {"crop_scale": 2},
+    "classic": {"use_fused": False},
 }
 REFERENCE_ARGS = {"n_pages": 8, "seed": 9000, "mode": "beam"}
 COMMAND = "JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_quality.py"
@@ -113,25 +115,22 @@ def test_score_pages_matches_jax():
     assert 0.0 < got["e2e_cer"] < 0.5 and got["n_gt_words"] == 72
 
 
-@pytest.mark.parametrize("crop_source", ["native", "device"])
-def test_evaluate_quality_matches_jax(jax_models, port_models, crop_source):
-    """Two held-out pages, greedy: native crops give the JAX package's
-    numbers exactly; device crops the same F1 and CER within 0.01 (their
-    bf16 crop products may move a pixel by one level)."""
-    kw = dict(n_pages=2, seed=9000, mode="greedy", crop_source=crop_source)
+@pytest.mark.parametrize("call", ["native", "device", "classic"])
+def test_evaluate_quality_matches_jax(jax_models, port_models, call):
+    """Two held-out pages, greedy: native crops and the classic path
+    (``use_fused=False``: ``EAST.predict`` with the host LANMS, host crops,
+    ``TRBA.predict``) give the JAX package's numbers exactly; device crops
+    the same F1 and CER within 0.01 (their bf16 crop products may move a
+    pixel by one level)."""
+    kw = dict(n_pages=2, seed=9000, mode="greedy", **REFERENCE_CALLS[call])
     ref = jq.evaluate_quality(models=jax_models, **kw)
     got = tq.evaluate_quality(models=port_models, **kw)
-    if crop_source == "native":
-        assert got == ref
-    else:
+    if call == "device":
         assert got["detector_f1"] == ref["detector_f1"]
         assert abs(got["e2e_cer"] - ref["e2e_cer"]) <= 0.01
+    else:
+        assert got == ref
     assert got["detector_f1"] > 0.95
-
-
-def test_classic_path_is_not_ported(port_models):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tq.evaluate_quality(n_pages=1, use_fused=False, models=port_models)
 
 
 @pytest.mark.parametrize("fixture_name", ["parity_fixture.json", "parity_fixture_beam.json"])
