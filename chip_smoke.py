@@ -63,7 +63,24 @@ run with a traceback and a non-zero exit:
    from 8 client threads (pages/s, p50/p99 latency, mean batch fill); and
    ``python -m manuscript_tpu_torch serve`` as a subprocess (random
    weights, an empty HOME) answers ``/healthz`` with the card's name and
-   one ``.npy`` POST with 200, and is stopped.
+   one ``.npy`` POST with 200, and is stopped;
+10. training: one TRBA step (dropout 0) and one EAST step (ASAM + SGD,
+   OHEM, focal geometry) from the micro checkpoints on the card and on the
+   CPU with TF32 off, each SGD at a scale of 1e6 (|d| of the loss, of the
+   gradients read off the update, and of the running statistics);
+   ``TRBA.train`` at full width (64×256, hidden 256, 194 tokens, batch 64,
+   Adam, clip 5, dropout on) on 256 rendered crops written as PNG, 2 epochs
+   with beam validation and a third resumed from ``last_state.msgpack``
+   (median seconds of a ``train_step`` call, synchronised before and after,
+   samples/s, peak memory,
+   validation accuracy and CER, and the K1 steps around the validations:
+   26 greedy + 25 beam a batch), ``best_acc.msgpack`` read by ``TRBA``, 30
+   steps on one fixed batch (the loss falls) and an epoch in bfloat16;
+   ``EAST.train`` at its defaults (resnet101, 1024², batch 3, ASAM + SGD,
+   OHEM, focal, multiscale, freeze_first) on 6 synthetic pages with COCO
+   labels, GPU-resident and streamed, and RAdam + Lookahead + EMA over 6
+   steps (one Lookahead sync), with step seconds, peak memory, validation
+   loss and soft dice, and ``best.msgpack`` read by ``EAST``.
 
 It prints the card's name and power limit, one JSON line with a row per
 kernel (K1 and K2 launches from phase 5, K3 launches from phase 8), and last
@@ -74,6 +91,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -839,6 +857,243 @@ def serving(torch, det, rec, rng, k1, k2) -> None:
     check(proc.poll() is not None, "serve subprocess still running")
 
 
+def micro_train_steps(torch) -> None:
+    """Phase 10, first part: one TRBA step (dropout 0) and one EAST step (ASAM
+    + SGD, OHEM, focal geometry, ``freeze_first``) from the committed micro
+    checkpoints, on the card and on the CPU, TF32 off. Both are SGD at lr 1
+    under a scale S = 1e6 (TRBA's plateau scale, EAST's learning rate), so the
+    update is −S·g: each leaf's gradient on the card within 1e-4 of the leaf's
+    largest entry of the CPU's (plus 1e-6 of the largest entry of all, for the
+    conv biases before a BatchNorm, whose gradient is 0), the loss within 1e-5
+    relative, the running statistics within 1e-4. The pixels are drawn
+    uniformly (EAST's label maps are two rendered pages' at 64²): on
+    near-white crops and pages the stem's float32 gradient is a difference
+    of nearly equal sums, which the card's and the CPU's reduction orders
+    round apart; under ASAM it sets the perturbation of the frozen stem, and
+    the card's step then parted from the CPU's by 3 % of a leaf's largest
+    entry in the first trainable block, in some runs and not in others."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.recognizers.charset import pack_targets
+    from manuscript_tpu_torch.train import east_train, optim, trba_train
+    from manuscript_tpu_torch.train.east_dataset import rasterize_quad_maps
+    from manuscript_tpu_torch.utils.synthetic import VOCAB, render_page
+    from manuscript_tpu_torch.utils.weights import msgpack_restore, params_from_jax
+
+    qdir = ROOT / "manuscript_tpu" / "configs" / "quality"
+    raw = msgpack_restore(qdir / "trba_micro.msgpack")
+    east_raw = msgpack_restore(qdir / "east_micro.msgpack")
+    itos = [raw["itos"][str(i)] for i in range(len(raw["itos"]))]
+    stoi = {s: i for i, s in enumerate(itos)}
+    rng = np.random.default_rng(10)
+    words = [str(VOCAB[int(i)]) for i in rng.integers(len(VOCAB), size=8)]
+    crops = rng.integers(0, 256, (8, 32, 128, 3), dtype=np.uint8)
+    text_in, target_y, _ = pack_targets(words, stoi, 12)
+    pages, scores, geos = [], [], []
+    for _ in range(2):
+        _, ws = render_page(rng, page_h=256, page_w=192, n_rows=3, n_cols=1)
+        pages.append(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+        score, geo = rasterize_quad_maps([w["quad"] * np.float32([64 / 192, 64 / 256]) for w in ws], 64)
+        scores.append(score)
+        geos.append(geo)
+    east_batch = [np.stack(a) for a in (pages, scores, geos)]
+    scale = 1e6
+    before = [params_from_jax(raw), params_from_jax(east_raw)]
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = TRBAModel(len(itos), 64, stoi["<SOS>"], stoi["<EOS>"], stoi.get("<BLANK>"), "micro",
+                          enc_dropout_p=0.0, dec_dropout_p=0.0)
+        model.load_state_dict(before[0])
+        model.to(dev)
+        params = dict(model.named_parameters())
+        tx = optim.build_trba_optimizer("sgd", 1.0)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in (("image", crops), ("text_in", text_in), ("target_y", target_y))}
+        loss, _ = trba_train.train_step(model, tx, tx.init(params), params, batch, stoi["<PAD>"],
+                                        lr_scale=scale)
+        east = EASTModel("resnet50-micro")
+        east.load_state_dict(before[1])
+        east.to(dev)
+        mask = east_train.freeze_mask(east, True)
+        trainable = {k: p for k, p in east.named_parameters() if mask[k]}
+        etx = optim.sgd(scale, 0.9)
+        state = east_train.EASTTrainState(east, etx.init(trainable), None)
+        eloss = east_train.train_step(state, etx, trainable,
+                                      *(torch.from_numpy(a).to(dev) for a in east_batch))
+        out[dev] = [(loss.item(), {k: v.detach().cpu() for k, v in m.state_dict().items()}, names)
+                    for loss, m, names in ((loss, model, params), (eloss, east, dict(east.named_parameters())))]
+    for name, (card, cpu), start in zip(("TRBA", "EAST"), zip(out["cuda"], out["cpu"]), before):
+        grad = lambda st: {k: (start[k] - st[k]).double() / scale for k in cpu[2]}
+        g_card, g_cpu = grad(card[1]), grad(cpu[1])
+        floor = 1e-6 * max(g.abs().max().item() for g in g_cpu.values())
+        ratios = sorted(((g_card[k] - g_cpu[k]).abs().max().item()
+                         / (1e-4 * g_cpu[k].abs().max().item() + floor), k) for k in g_cpu)
+        dgrad = ratios[-1][0]
+        print(f"  worst leaves (|d| over the bound, leaf, its largest entry over the largest of all): "
+              f"{[(round(r, 4), k, round(g_cpu[k].abs().max().item() / floor * 1e-6, 8)) for r, k in ratios[-4:]]}")
+        dloss = abs(card[0] - cpu[0])
+        dstat = max((card[1][k] - cpu[1][k]).abs().max().item() for k in cpu[1] if "running" in k)
+        print(f"micro {name} train step, card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f}, |d| "
+              f"{dloss:.3e}; gradients (update / -{scale:g}) max |d| over the bound {dgrad:.3e}; "
+              f"running statistics max |d| {dstat:.3e}")
+        check(dloss <= 1e-5 * abs(cpu[0]) and dgrad <= 1.0 and dstat <= 1e-4, (name, dloss, dgrad, dstat))
+
+
+@contextlib.contextmanager
+def timed_steps(torch, module):
+    """Inside: each call of ``module.train_step`` waits for the card before
+    and after, and its seconds are appended to the list yielded. The
+    trainers look the step up in their module, so their loops are timed."""
+    real, seconds = module.train_step, []
+
+    def step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return result
+
+    module.train_step = step
+    try:
+        yield seconds
+    finally:
+        module.train_step = real
+
+
+def trba_full_training(torch, k1, tmp: Path) -> int:
+    """Phase 10: ``TRBA.train`` at full width on rendered word crops → the K1
+    steps counted around its validations."""
+    from manuscript_tpu_torch import TRBA
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.train import optim, trba_train
+    from manuscript_tpu_torch.train.trba_dataset import OCRDataset, collate_attention
+    from manuscript_tpu_torch.recognizers.charset import default_charset
+    from manuscript_tpu_torch.utils.synthetic import build_word_dataset, render_word
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    t0 = time.perf_counter()
+    tsv, imgs = build_word_dataset(tmp / "words", 256, seed=1)
+    vtsv, vimgs = build_word_dataset(tmp / "val_words", 64, seed=2)
+    print(f"TRBA data: 256 training and 64 validation crops written as PNG in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cfg = dict(exp_root=str(tmp / "trba"), cnn_stage_plan="full", img_h=64, img_w=256,
+               hidden_size=256, max_len=25, batch_size=64, lr=1e-3, optimizer="adam",
+               grad_clip=5.0, eval_beam=True, beam_size=8, epochs=2, seed=0)
+    per_epoch = -(-64 // 64) * (26 + 25)  # one greedy (max_len + 1) and one beam (max_len) pass
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    with timed_steps(torch, trba_train) as first_s:
+        first = TRBA.train(tsv, imgs, vtsv, vimgs, config=cfg)
+    launches = [k1.launches]
+    exp = Path(first["exp_dir"])
+    k1.launches = 0
+    with timed_steps(torch, trba_train) as again_s:
+        again = TRBA.train(tsv, imgs, vtsv, vimgs,
+                           config=dict(cfg, exp_name=exp.name, resume=str(exp), epochs=3))
+    launches.append(k1.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    history = first["history"] + again["history"]
+    steps = first_s[1:] + again_s[1:]
+    med = statistics.median(steps)
+    print(f"TRBA.train full width (64×256, hidden 256, 194 tokens, batch 64, Adam 1e-3, clip 5, "
+          f"dropout on): epochs {[h['epoch'] for h in history]} (the third resumed from "
+          f"last_state.msgpack); median step {med:.4f} s over {len(steps)} steps after each run's "
+          f"first = {64 / med:.1f} samples/s; all steps {[round(s, 4) for s in first_s + again_s]}; "
+          f"epoch seconds {[round(h['time_s'], 2) for h in history]}; peak memory {peak:.2f} GiB")
+    for h in history:
+        print(f"  epoch {h['epoch']}: train loss {h['train_loss']:.4f}, val loss {h['val_loss']:.4f}, "
+              f"greedy acc {h['val_acc']:.4f} CER {h['val_cer']:.4f}, beam acc "
+              f"{h['beam']['accuracy']:.4f} CER {h['beam']['cer']:.4f}")
+        check(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"]), h)
+    print(f"K1 steps in training's validation: {launches} for 2 + 1 epochs of one 64-crop batch "
+          f"(expected {per_epoch} a epoch: 26 greedy + 25 beam)")
+    check(launches == [2 * per_epoch, per_epoch], launches)
+
+    rec = TRBA(weights_path=exp / "checkpoints" / "best_acc.msgpack")
+    crops = [render_word(w, np.random.default_rng(3)) for w in ("ink", "codex", "margin")]
+    got = rec.predict(crops, mode="beam")
+    print(f"best_acc.msgpack in TRBA(weights_path=...): {[(r['text'], round(r['confidence'], 4)) for r in got]}")
+    check(len(got) == 3 and all(np.isfinite(r["confidence"]) for r in got), got)
+
+    itos = default_charset()
+    stoi = {s: i for i, s in enumerate(itos)}
+    ds = OCRDataset(tsv, imgs, stoi, max_len=25, img_h=64, img_w=256)
+    batch = collate_attention([ds[i] for i in range(64)], stoi, 25)
+    batch = {k: torch.from_numpy(batch[k]).cuda() for k in ("image", "text_in", "target_y")}
+    model = init_random_(TRBAModel(len(itos), 256, stoi["<SOS>"], stoi["<EOS>"], stoi.get("<BLANK>")), 0).cuda()
+    params = dict(model.named_parameters())
+    tx = optim.build_trba_optimizer("adam", 1e-3, 0.0, 5.0)
+    state, gen = tx.init(params), torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    for _ in range(30):
+        loss, state = trba_train.train_step(model, tx, state, params, batch, stoi["<PAD>"], generator=gen)
+        losses.append(loss)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    print(f"30 steps on one fixed batch of 64: loss {losses[0]:.4f} → {losses[-1]:.4f}")
+    check(losses[-1] < losses[0], losses)
+
+    bf16 = TRBA.train(tsv, imgs, vtsv, vimgs, config=dict(cfg, exp_root=str(tmp / "trba_bf16"), epochs=1,
+                                                         eval_beam=False, compute_dtype="bfloat16"))
+    b_losses = bf16["history"][0]["train_losses"]
+    print(f"one epoch under compute_dtype='bfloat16': step losses {[round(v, 4) for v in b_losses]}, "
+          f"val loss {bf16['val_loss']:.4f}, {bf16['history'][0]['time_s']:.2f} s")
+    check(np.all(np.isfinite(b_losses)) and np.isfinite(bf16["val_loss"]), b_losses)
+    return sum(launches)
+
+
+def east_full_training(torch, tmp: Path) -> None:
+    """Phase 10: ``EAST.train`` at the trainer's defaults (resnet101, 1024²,
+    batch 3, ASAM + SGD, OHEM, focal geometry, multiscale, freeze_first)."""
+    from manuscript_tpu_torch import EAST
+    from manuscript_tpu_torch.train import east_train
+    from manuscript_tpu_torch.utils.synthetic import build_page_dataset
+
+    t0 = time.perf_counter()
+    coco, pages, _ = build_page_dataset(tmp / "pages", 6, seed=3)
+    vcoco, vpages, _ = build_page_dataset(tmp / "val_pages", 3, seed=4)
+    print(f"EAST data: 6 training and 3 validation pages (1024×768, 24 words each) with COCO "
+          f"labels, written in {time.perf_counter() - t0:.2f} s")
+    common = dict(experiment_root=str(tmp / "east"), target_size=1024, batch_size=3)
+    runs = {}
+    for name, kw in (("GPU-resident (cache_device=True), ASAM + SGD", dict(epochs=2, cache_device=True)),
+                     ("streamed, host resize, ASAM + SGD", dict(epochs=1)),
+                     ("RAdam + Lookahead + EMA, GPU-resident, 6 steps", dict(
+                         epochs=3, cache_device=True, use_sam=False, use_ema=True))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with timed_steps(torch, east_train) as s:
+            out = EAST.train(pages, coco, vpages, vcoco, model_name=f"run{len(runs)}", **common, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = out
+        print(f"EAST.train resnet101 at 1024², {name}: step seconds {[round(x, 4) for x in s]} "
+              f"(median after the first {statistics.median(s[1:]):.4f}); wall {wall:.2f} s; peak "
+              f"memory {peak:.2f} GiB")
+        for h in out["history"]:
+            print(f"  epoch {h['epoch']}: train loss {h['train_loss']:.4f}, val loss "
+                  f"{h['val_loss']:.4f}, soft dice {h['val_dice']:.4f}, {h['time']:.2f} s")
+            check(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"]), h)
+    best = Path(runs["GPU-resident (cache_device=True), ASAM + SGD"]["exp_dir"]) / "checkpoints" / "best.msgpack"
+    det = EAST(best, backbone="resnet101", target_size=1024)
+    page = np.full((1024, 768, 3), 235, np.uint8)
+    result = det.predict(page)
+    print(f"best.msgpack in EAST(weights_path=...): predict → {len(words_of(result['page']))} boxes")
+
+
+def training(torch, k1) -> int:
+    """Phase 10 → the K1 steps of training's validations."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    micro_train_steps(torch)
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        launches = trba_full_training(torch, k1, Path(tmp))
+        east_full_training(torch, Path(tmp))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1096,6 +1351,11 @@ def main() -> int:
     phase("9 serving")
     serving(torch, det, rec, rng, k1, k2)
 
+    # ---- 10. training ----------------------------------------------------------------
+    phase("10 training")
+    print(smi)
+    train_launches = training(torch, k1)
+
     # ---- result ---------------------------------------------------------------
     print(smi)
     # the rows of the batched path: K1 at its largest beam-row count (8·B·nw
@@ -1107,7 +1367,8 @@ def main() -> int:
     k2_ms, k2_plain_ms, k2_bound, k2_by, _ = k2_rows["pred4"]
     k3_ms, k3_plain_ms, k3_bound, k3_by, _ = k3_rows_[8192]
     print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
-          f"Pipeline.predict on 3 pages in phase 3: {launches}), K3 launches of "
+          f"Pipeline.predict on 3 pages in phase 3: {launches}; training's validations in "
+          f"phase 10: {train_launches} K1 steps), K3 launches of "
           f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
           f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
     rows = [

@@ -52,7 +52,9 @@ from ..utils.weights import (
     cached_checkpoint,
     init_random_,
     msgpack_restore,
+    msgpack_serialize,
     params_from_jax,
+    params_to_jax,
 )
 
 VIS_NOT_PORTED = (
@@ -127,6 +129,21 @@ class EAST:
                 "MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) for untrained weights"
             )
         self.model.to(device=self.device, dtype=dtype).eval()
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Write the model's variables as a flax ``.msgpack`` checkpoint
+        ({"params", "batch_stats"}, float32): the port's and the JAX
+        package's ``EAST(weights_path=...)`` load it."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_bytes(msgpack_serialize(params_to_jax(self.model.state_dict())))
+
+    @staticmethod
+    def train(*args, **kwargs):
+        """Train a detector (``train/east_train.train``; on the card unless
+        ``device="cpu"``)."""
+        from ..train.east_train import train as _train
+
+        return _train(*args, **kwargs)
 
     # ---- device stages -------------------------------------------------------
 

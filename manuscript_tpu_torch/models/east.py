@@ -4,7 +4,9 @@ ResNet backbone taps at strides 4/8/16/32, a merge decoder (2× bilinear
 upsample, half-pixel centres, + concat + conv1×1/BN/ReLU + conv3×3/BN/ReLU)
 and 1×1 heads: a sigmoid score map (1 channel) and QUAD geometry
 (8 channels) at 1/4 resolution, both float32 whatever the compute dtype.
-``forward`` keeps the JAX layout: NHWC in, NHWC out.
+``forward`` keeps the JAX layout: NHWC in, NHWC out. In train mode
+(``model.train()``) every BatchNorm uses and updates batch statistics, as
+flax's ``train=True`` does.
 """
 
 from __future__ import annotations

@@ -2,29 +2,92 @@
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Optional, Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over channel dim 1 (flax ``nn.BatchNorm`` with
-    ``use_running_average=True``, epsilon 1e-5). Its state is buffers:
-    weight, bias, running_mean, running_var."""
+    """BatchNorm over channel dim 1 with flax ``nn.BatchNorm`` semantics
+    (momentum 0.9, epsilon 1e-5); ``weight`` and ``bias`` are parameters,
+    ``running_mean`` and ``running_var`` buffers.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In eval mode it normalizes with the running statistics. In train mode it
+    normalizes with the batch mean and the biased batch variance in at least
+    float32, (x − mean)·rsqrt(var + eps)·weight + bias, and differentiates
+    through them. Unless ``update_stats`` is False (SAM's perturbed pass sets
+    it through ``frozen_batch_stats``), the running statistics then move as
+    flax moves them: ``running = 0.9·running + 0.1·batch``. torch's
+    ``F.batch_norm`` would move ``running_var`` by the unbiased variance, so
+    the train path is written here. The variance is the mean of (x − mean)²;
+    flax takes it as E[x²] − E[x]², which cancels in float32 where a channel's
+    mean dwarfs its spread and then moves the gradients by up to several % of
+    a leaf's largest entry (tests/test_torch_train_east.py)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.eps, self.momentum = eps, momentum
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.eps,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        xc = xf - mean.view(shape)
+        var = xc.square().mean(dims)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = xc * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+@contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """Inside: train-mode BatchNorms normalize with batch statistics but leave
+    their running statistics alone."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(bns, saved):
+            m.update_stats = s
+
+
+def dropout(
+    x: torch.Tensor,
+    p: float,
+    generator: Optional[torch.Generator] = None,
+    mask_shape: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry with probability 1 − p (a uniform
+    draw below 1 − p) and scale the kept ones by 1/(1 − p). ``mask_shape``
+    broadcasts one draw over the axes where it is 1."""
+    if p <= 0.0:
+        return x
+    keep = 1.0 - p
+    shape = tuple(mask_shape) if mask_shape is not None else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def conv(cin: int, cout: int, k, stride=1, padding=0, bias: bool = False) -> nn.Conv2d:

@@ -1,10 +1,12 @@
-"""ResNet-50 feature extractor (counterpart of ``manuscript_tpu/models/resnet.py``).
+"""ResNet-50/101 feature extractor (counterpart of ``manuscript_tpu/models/resnet.py``).
 
 Stem 7×7/2 conv (pad 3) + BN + ReLU + 3×3/2 max pool (−inf pad), then four
 bottleneck stages at strides 4/8/16/32, features returned after each. The
 JAX package computes the stem as a space-to-depth 4×4 conv over the same
 (7, 7, C_in, width) kernel, a TPU layout trick with the same result; here it
-is the plain 7×7/2 conv. NCHW inside; ``forward`` takes NCHW.
+is the plain 7×7/2 conv. NCHW inside; ``forward`` takes NCHW. Train mode is
+the module's (``model.train()``): its BatchNorms then use and update batch
+statistics.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .layers import BatchNorm, conv
 
 STAGE_BLOCKS = {
     "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
     "resnet50-tiny": (1, 1, 1, 1),
     "resnet50-micro": (1, 1, 1, 1),
 }

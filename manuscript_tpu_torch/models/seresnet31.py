@@ -1,15 +1,23 @@
 """SEResNet31 recognizer backbone (counterpart of
 ``manuscript_tpu/models/seresnet31.py``): stem 3→64→128 + 2×2 max pool,
 SE basic-block stages, then ``out_conv1`` (2×2, stride (2,1), padding (0,1))
-and a valid 2×2 ``out_conv2``. NCHW inside; ``forward`` takes NCHW."""
+and a valid 2×2 ``out_conv2``. NCHW inside; ``forward`` takes NCHW.
+
+In train mode (``model.train()``) the BatchNorms use and update batch
+statistics and, when ``dropblock_p`` > 0, each block drops whole channels of
+a sample after its SE layer (flax ``nn.Dropout`` with ``broadcast_dims=(1,
+2)``: one draw per sample and channel), scaling the kept ones by 1/(1 − p).
+The draws come from the ``generator`` given to ``forward``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv
+from .layers import BatchNorm, conv, dropout
 
 # (planes, blocks, stride) per stage
 STAGE_PLANS = {
@@ -34,27 +42,32 @@ class SELayer(nn.Module):
 
 
 class SEBasicBlock(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int, downsample: bool):
+    def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
+                 dropblock_p: float = 0.0):
         super().__init__()
         self.conv1 = conv(cin, planes, 3, stride, 1)
         self.bn1 = BatchNorm(planes)
         self.conv2 = conv(planes, planes, 3, 1, 1)
         self.bn2 = BatchNorm(planes)
         self.se = SELayer(planes)
+        self.dropblock_p = dropblock_p
         self.downsample = downsample
         if downsample:
             self.down_conv = conv(cin, planes, 1, stride)
             self.down_bn = BatchNorm(planes)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.se(self.bn2(self.conv2(out)))
+        if self.training and self.dropblock_p > 0:
+            out = dropout(out, self.dropblock_p, generator, (*out.shape[:2], 1, 1))
         identity = self.down_bn(self.down_conv(x)) if self.downsample else x
         return F.relu(out + identity)
 
 
 class SEResNet31(nn.Module):
-    def __init__(self, out_channels: int = 512, stage_plan: str = "full"):
+    def __init__(self, out_channels: int = 512, stage_plan: str = "full",
+                 dropblock_p: float = 0.0):
         super().__init__()
         stem1, stem2 = STEM_WIDTHS.get(stage_plan, (64, 128))
         self.stem_conv1 = conv(3, stem1, 3, 1, 1)
@@ -68,7 +81,8 @@ class SEResNet31(nn.Module):
                 name = f"layer{stage}_{b}"
                 down = b == 0 and (stride != 1 or cin != planes)
                 self.add_module(
-                    name, SEBasicBlock(cin, planes, stride if b == 0 else 1, down)
+                    name,
+                    SEBasicBlock(cin, planes, stride if b == 0 else 1, down, dropblock_p),
                 )
                 self.names.append(name)
                 cin = planes
@@ -77,12 +91,12 @@ class SEResNet31(nn.Module):
         self.out_conv2 = conv(out_channels, out_channels, 2)
         self.out_bn2 = BatchNorm(out_channels)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         x = F.relu(self.stem_bn1(self.stem_conv1(x)))
         x = F.relu(self.stem_bn2(self.stem_conv2(x)))
         x = F.max_pool2d(x, 2, 2)
         for name in self.names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, generator)
         x = F.relu(self.out_bn1(self.out_conv1(x)))
         x = F.relu(self.out_bn2(self.out_conv2(x)))
         if x.shape[2] == 0 or x.shape[3] == 0:

@@ -1,7 +1,16 @@
 """TRBA recognizer network (counterpart of ``manuscript_tpu/models/trba.py``):
 SEResNet31 → mean over height → 2×BiLSTM → attention decoder. ``cast``
 moves the CNN and BiLSTMs to a compute dtype while the decoder stays float32,
-as the JAX model does."""
+as the JAX model does; under ``torch.autocast`` the decoder runs with
+autocast off, in float32, for the same reason.
+
+Train mode is the module's (``model.train()``, where the JAX model takes a
+``train`` argument): the BatchNorms use and update
+batch statistics, the encoder output passes through dropout
+(``enc_dropout_p``, 0.1 as in the JAX model), the decoder's attention weights
+through its own (``dec_dropout_p``, 0.1), and the CNN's channel dropout runs
+when ``dropblock_p`` > 0. Every draw comes from the ``generator`` given to
+``encode``/``forward``."""
 
 from __future__ import annotations
 
@@ -11,8 +20,13 @@ import torch
 from torch import nn
 
 from .attention import AttentionDecoder
+from .layers import dropout
 from .rnn import BiLSTM
 from .seresnet31 import SEResNet31
+
+
+def _no_autocast(t: torch.Tensor):
+    return torch.autocast(t.device.type, enabled=False)
 
 
 class TRBAModel(nn.Module):
@@ -25,14 +39,18 @@ class TRBAModel(nn.Module):
         blank_id: Optional[int] = None,
         cnn_stage_plan: str = "full",
         cnn_out_channels: Optional[int] = None,
+        enc_dropout_p: float = 0.1,
+        dec_dropout_p: float = 0.1,
+        dropblock_p: float = 0.0,
     ):
         super().__init__()
         out_ch = cnn_out_channels or (128 if cnn_stage_plan == "micro" else 512)
-        self.cnn = SEResNet31(out_ch, cnn_stage_plan)
+        self.enc_dropout_p = enc_dropout_p
+        self.cnn = SEResNet31(out_ch, cnn_stage_plan, dropblock_p)
         self.enc_rnn1 = BiLSTM(out_ch, hidden_size, hidden_size)
         self.enc_rnn2 = BiLSTM(hidden_size, hidden_size, hidden_size)
         self.decoder = AttentionDecoder(
-            hidden_size, hidden_size, num_classes, sos_id, eos_id, blank_id
+            hidden_size, hidden_size, num_classes, sos_id, eos_id, blank_id, dec_dropout_p
         )
 
     def cast(self, dtype: torch.dtype) -> "TRBAModel":
@@ -40,13 +58,37 @@ class TRBAModel(nn.Module):
             m.to(dtype)
         return self
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode(
+        self,
+        x: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """x (B, H, W, 3) normalized → (B, W', hidden)."""
-        f = self.cnn(x.permute(0, 3, 1, 2)).mean(dim=2)  # height pool
-        return self.enc_rnn2(self.enc_rnn1(f.transpose(1, 2)))
+        f = self.cnn(x.permute(0, 3, 1, 2), generator).mean(dim=2)  # height pool
+        f = self.enc_rnn2(self.enc_rnn1(f.transpose(1, 2)))
+        if self.training and self.enc_dropout_p > 0:
+            f = dropout(f, self.enc_dropout_p, generator)
+        return f
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        text_in: torch.Tensor,
+        ss_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Teacher-forced logits (B, steps, V); ``ss_prob`` > 0 turns on
+        scheduled sampling in train mode."""
+        enc = self.encode(x, generator)
+        with _no_autocast(enc):
+            return self.decoder(enc.float(), text_in, ss_prob, generator)
 
     def greedy(self, x, max_len: int = 25):
-        return self.decoder.greedy(self.encode(x), max_len=max_len)
+        enc = self.encode(x)
+        with _no_autocast(enc):
+            return self.decoder.greedy(enc, max_len=max_len)
 
     def beam(self, x, max_len=25, beam_size=8, alpha=0.9, temperature=1.7):
-        return self.decoder.beam(self.encode(x), max_len, beam_size, alpha, temperature)
+        enc = self.encode(x)
+        with _no_autocast(enc):
+            return self.decoder.beam(enc, max_len, beam_size, alpha, temperature)

@@ -9,7 +9,8 @@ greedy path). On CUDA tensors it launches the three grids of
 ``manuscript_tpu/ops/pallas_attention.py``): proj_h on the tensor cores, the
 attention, then the gates on the tensor cores. On CPU tensors it runs ``attention_step_plain``, the
 same function in torch ops. There is no other route: a tensor on any other
-device, or a CUDA tensor the kernels do not take, raises.
+device, or a CUDA tensor the kernels do not take, raises. The kernels have no
+backward pass: on the card, inputs that require grad under grad mode raise.
 """
 
 from __future__ import annotations
@@ -93,8 +94,17 @@ def _require(t: torch.Tensor, name: str, shape, dtype=torch.float32):
 def attention_step_cuda(
     enc, proj_enc, h, c, tok, w_h2h, b_h2h, w_score, w_ih, w_hh, bias, beam: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the step's three grids on the current stream."""
+    """Launch the step's three grids on the current stream. The launch goes
+    through ctypes and records no autograd graph, so with grad mode on an
+    input that requires grad raises rather than losing its gradient."""
     global launches, kernel_launches
+    args = (enc, proj_enc, h, c, w_h2h, b_h2h, w_score, w_ih, w_hh, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError(
+            "attention_step: the CUDA kernels have no backward pass; call them under "
+            "torch.no_grad() (training's teacher-forced step runs "
+            "AttentionDecoder.forward in torch ops)"
+        )
     _check_beam(enc, h, beam)
     b, t, e_dim = enc.shape
     r, hidden = h.shape

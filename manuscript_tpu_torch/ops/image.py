@@ -14,11 +14,16 @@ port does not depend on OpenCV, so this module reproduces the two OpenCV
   order, rounded half to even; an integer shrink of both axes is the box
   average.
 
-``read_image`` imports cv2 (or PIL) only when it is given a path.
+``read_image`` imports cv2 (or PIL) only when it is given a path; with
+neither installed it still reads PNG files, through ``decode_png`` (zlib and
+numpy: 8-bit gray, gray + alpha, RGB and RGBA, not interlaced, all five row
+filters). ``encode_png`` writes such files (8-bit gray or RGB, filter 0).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
@@ -45,7 +50,11 @@ def read_image(img_or_path: Union[str, Path, np.ndarray]) -> np.ndarray:
                 return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
         try:
             from PIL import Image
-
+        except ImportError:
+            Image = None
+        try:
+            if Image is None:
+                return to_rgb_u8(decode_png(Path(path).read_bytes()))
             with Image.open(path) as pil_img:
                 return np.array(pil_img.convert("RGB"))
         except Exception as e:
@@ -53,6 +62,78 @@ def read_image(img_or_path: Union[str, Path, np.ndarray]) -> np.ndarray:
     if hasattr(img_or_path, "convert"):  # a PIL image
         return np.array(img_or_path.convert("RGB"))
     raise TypeError(f"Unsupported type for image input: {type(img_or_path)}")
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type → channels
+
+
+def _unfilter_row(kind: int, row: np.ndarray, up: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo one PNG row filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    if kind == 0:
+        return row
+    if kind == 2:
+        return row + up
+    if kind == 1:  # running sum per byte lane, mod 256
+        lanes = row.reshape(-1, bpp)
+        return np.cumsum(lanes, axis=0, dtype=np.uint8).reshape(-1)
+    out = bytearray(row.tobytes())
+    prior = up.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        if kind == 3:
+            out[i] = (out[i] + ((a + b) >> 1)) & 0xFF
+        else:
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG → (H, W) or (H, W, C) uint8."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, color type {color}, interlace {interlace}")
+    ch = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * ch)
+    out = np.empty((h, w * ch), np.uint8)
+    up = np.zeros(w * ch, np.uint8)
+    for y in range(h):
+        up = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], up, ch)
+    return out.reshape(h, w, ch)[..., 0] if ch == 1 else out.reshape(h, w, ch)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 → PNG bytes (filter 0, zlib level 6)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    color = 0 if img.ndim == 2 else 2
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def to_rgb_u8(img: np.ndarray) -> np.ndarray:

@@ -9,7 +9,8 @@ hidden_size, img_h, img_w, cnn_stage_plan) comes from ``config_path``, else
 from a sidecar ``<checkpoint>.json`` or ``config.json`` beside the
 checkpoint, else from the checkpoint itself; the charset from
 ``charset_path``, else from the checkpoint, else the default one. The CNN
-and BiLSTMs compute in ``dtype``; the decoder stays float32.
+and BiLSTMs compute in ``dtype``; the decoder stays float32. ``save`` writes
+the trainer's checkpoint layout, and ``TRBA.train`` is the trainer.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from ..utils.weights import (
     cached_checkpoint,
     init_random_,
     msgpack_restore,
+    msgpack_serialize,
     params_from_jax,
+    params_to_jax,
 )
 from .charset import (
     BLANK_TOKEN,
@@ -147,6 +150,27 @@ class TRBA:
             init_random_(self.model, seed)
         self.model.to(self.device).cast(dtype).eval()
         self.dtype = dtype
+
+    def save(self, path: Union[str, Path]) -> None:
+        """Write a self-describing flax ``.msgpack`` checkpoint (the model's
+        variables, ``itos`` and the model config, the trainer's layout): the
+        port's and the JAX package's ``TRBA(model_path=...)`` load it."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        payload = params_to_jax(self.model.state_dict())
+        payload["itos"] = list(self.itos)
+        payload["config"] = {
+            "max_len": self.max_length, "hidden_size": self.hidden_size,
+            "img_h": self.img_h, "img_w": self.img_w, "cnn_stage_plan": self.cnn_stage_plan,
+        }
+        Path(path).write_bytes(msgpack_serialize(payload))
+
+    @staticmethod
+    def train(*args, **kwargs):
+        """Train a recognizer (``train/trba_train.train``; on the card unless
+        ``device="cpu"``)."""
+        from ..train.trba_train import train as _train
+
+        return _train(*args, **kwargs)
 
     @torch.inference_mode()
     def recognize_tensor(

@@ -1,6 +1,8 @@
 """Deterministic synthetic manuscript pages with ground truth, in numpy alone
 (counterpart of ``manuscript_tpu/utils/synthetic.py``: ``VOCAB``,
-``render_page``, ``eval_pages``).
+``render_page``, ``eval_pages``, and the training sets on disk,
+``build_word_dataset`` and ``build_page_dataset``, as PNG files written by
+``ops.image.encode_png``).
 
 The JAX package draws each word with PIL. The port reads the same glyphs,
 as ``render_word(word, None, height=36, noise=0.0)`` drew them, from
@@ -11,11 +13,14 @@ page bytes and the same ground truth as the JAX package.
 
 from __future__ import annotations
 
+import json
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from ..ops.image import encode_png
 
 GLYPHS = Path(__file__).resolve().parent.parent / "configs" / "synthetic_glyphs.npz"
 
@@ -86,3 +91,43 @@ def eval_pages(
     training seeds) → [(page_u8, [{"quad", "text"}, ...]), ...]."""
     rng = np.random.default_rng(seed)
     return [render_page(rng, **page_kwargs) for _ in range(n_pages)]
+
+
+def build_word_dataset(root: Path, n: int, seed: int = 0) -> Tuple[str, str]:
+    """Word crops on disk → (labels.tsv path, image folder)."""
+    img_dir = Path(root) / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        word = str(VOCAB[int(rng.integers(len(VOCAB)))])
+        name = f"w{i:05d}.png"
+        (img_dir / name).write_bytes(encode_png(render_word(word, rng)))
+        rows.append(f"{name}\t{word}")
+    tsv = Path(root) / "labels.tsv"
+    tsv.write_text("\n".join(rows))
+    return str(tsv), str(img_dir)
+
+
+def build_page_dataset(
+    root: Path, n_pages: int, seed: int = 0, **page_kwargs
+) -> Tuple[str, str, List[List[Dict]]]:
+    """Pages on disk with COCO annotations of their word boxes → (coco.json
+    path, image folder, each page's ground-truth words)."""
+    img_dir = Path(root) / "pages"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, annotations, gt = [], [], []
+    for i in range(n_pages):
+        page, words = render_page(rng, **page_kwargs)
+        name = f"p{i:04d}.png"
+        (img_dir / name).write_bytes(encode_png(page))
+        images.append({"id": i, "file_name": name, "height": page.shape[0], "width": page.shape[1]})
+        for w in words:
+            annotations.append({"id": len(annotations) + 1, "image_id": i, "category_id": 1,
+                                "segmentation": [w["quad"].ravel().tolist()]})
+        gt.append(words)
+    coco = Path(root) / "coco.json"
+    coco.write_text(json.dumps({"images": images, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "word"}]}))
+    return str(coco), str(img_dir), gt

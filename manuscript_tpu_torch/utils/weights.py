@@ -1,16 +1,22 @@
-"""Weights for the port: the flax checkpoint reader, the flax → torch
-conversion, and seeded random init.
+"""Weights for the port: the flax checkpoint reader and writer, the flax ⇄
+torch conversion, and seeded random init.
 
 * ``msgpack_restore`` decodes a flax ``.msgpack`` checkpoint with a small
   MessagePack reader of its own: nil, bool, ints, floats, str, bin, arrays,
   maps, and the ext types flax writes for arrays (1, an ndarray as
   ``[shape, dtype name, bytes]``) and numpy scalars (3).
+* ``msgpack_serialize`` is the writer: nested dicts (lists and tuples
+  become {"0": ..., "1": ...} maps, as flax's ``to_state_dict`` makes them),
+  numpy arrays and torch tensors as flax's ndarray ext type, numpy scalars
+  as its scalar ext type, and plain ints, floats, strings, bools and None,
+  so that ``flax.serialization.msgpack_restore`` reads the bytes back.
 * ``params_from_jax`` turns a flax variable tree ({"params", "batch_stats"} of
   nested dicts of numpy arrays) into the port's state dict: conv kernels HWIO
   → OIHW, Dense kernels transposed, BatchNorm scale/bias/mean/var →
   weight/bias/running_mean/running_var. The LSTM and decoder parameters keep
   their flax names and layouts ((in, 4H) kernels, gates i,f,g,o, one folded
-  bias), so the port computes the same sums.
+  bias), so the port computes the same sums. ``params_to_jax`` is its
+  inverse.
 * ``init_random_`` fills a model from a seeded ``torch.Generator`` (LeCun
   normal kernels, zero biases, identity BatchNorm) — the full-width models
   have no trained weights in the repository.
@@ -115,6 +121,111 @@ def msgpack_restore(data: Union[bytes, str, Path]) -> Any:
     return out
 
 
+class _Writer:
+    def __init__(self):
+        self.out = bytearray()
+
+    def head(self, small: Optional[int], codes: Tuple[int, int, int], n: int, fix_max: int) -> None:
+        """A length header: ``small | n`` up to ``fix_max``, else the 8-, 16-
+        or 32-bit form (``codes``; None where the type has no such form)."""
+        if small is not None and n <= fix_max:
+            self.out.append(small | n)
+        elif codes[0] is not None and n < 1 << 8:
+            self.out += struct.pack(">BB", codes[0], n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", codes[1], n)
+        else:
+            self.out += struct.pack(">BI", codes[2], n)
+
+    def value(self, v: Any) -> None:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        if v is None:
+            self.out.append(0xC0)
+        elif isinstance(v, (bool, np.bool_)) and not isinstance(v, np.ndarray):
+            self.out.append(0xC3 if v else 0xC2)
+        elif isinstance(v, int):
+            self.int(v)
+        elif isinstance(v, float):
+            self.out += struct.pack(">Bd", 0xCB, v)
+        elif isinstance(v, str):
+            raw = v.encode("utf-8")
+            self.head(0xA0, (0xD9, 0xDA, 0xDB), len(raw), 31)
+            self.out += raw
+        elif isinstance(v, (bytes, bytearray)):
+            self.head(None, (0xC4, 0xC5, 0xC6), len(v), 0)
+            self.out += v
+        elif isinstance(v, np.ndarray):
+            self.ext(1, v)
+        elif isinstance(v, np.generic):
+            self.ext(3, np.asarray(v))
+        elif isinstance(v, dict):
+            self.head(0x80, (None, 0xDE, 0xDF), len(v), 15)
+            for k, x in v.items():
+                self.value(str(k))
+                self.value(x)
+        elif isinstance(v, (list, tuple)):
+            self.value({str(i): x for i, x in enumerate(v)})
+        else:
+            raise TypeError(f"msgpack_serialize: cannot write {type(v).__name__}")
+
+    def int(self, v: int) -> None:
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+        elif v >= 0:
+            for code, fmt, lim in ((0xCC, ">B", 8), (0xCD, ">H", 16), (0xCE, ">I", 32), (0xCF, ">Q", 64)):
+                if v < 1 << lim:
+                    self.out += struct.pack(">B", code) + struct.pack(fmt, v)
+                    return
+            raise OverflowError(v)
+        else:
+            for code, fmt, lim in ((0xD0, ">b", 7), (0xD1, ">h", 15), (0xD2, ">i", 31), (0xD3, ">q", 63)):
+                if v >= -(1 << lim):
+                    self.out += struct.pack(">B", code) + struct.pack(fmt, v)
+                    return
+            raise OverflowError(v)
+
+    def ext(self, code: int, arr: np.ndarray) -> None:
+        if arr.dtype.hasobject or arr.dtype.fields is not None:
+            raise TypeError(f"msgpack_serialize: cannot write arrays of {arr.dtype}")
+        if arr.nbytes > 1 << 30:
+            raise ValueError("msgpack_serialize: arrays over 1 GiB are not supported")
+        # (shape, dtype name, bytes) as a msgpack array, as flax packs it
+        payload = _ndarray_payload(arr)
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out += struct.pack(">Bb", fixed[n], code)
+        elif n < 1 << 8:
+            self.out += struct.pack(">BBb", 0xC7, n, code)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BHb", 0xC8, n, code)
+        else:
+            self.out += struct.pack(">BIb", 0xC9, n, code)
+        self.out += payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """The ndarray ext payload: the msgpack array [shape, dtype name, bytes]."""
+    w = _Writer()
+    w.head(0x90, (None, 0xDC, 0xDD), 3, 15)
+    w.head(0x90, (None, 0xDC, 0xDD), arr.ndim, 15)
+    for n in arr.shape:
+        w.int(int(n))
+    w.value(arr.dtype.name)
+    w.value(np.ascontiguousarray(arr).tobytes())
+    return bytes(w.out)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode nested dicts of arrays (numpy or torch), numpy scalars and plain
+    values as flax ``to_bytes`` does; ``msgpack_restore`` here and in flax
+    read the bytes back."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
 def _walk(tree: Dict, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -146,6 +257,36 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
         out[".".join(mods + [_BN_STATS[leaf]])] = torch.from_numpy(
             np.array(arr, dtype=np.float32)
         )
+    return out
+
+
+_BN_LEAVES = {v: k for k, v in _BN_STATS.items()}
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's state dict → flax variables {"params": ..., "batch_stats":
+    ...} of nested dicts of float32 numpy arrays: the inverse of
+    ``params_from_jax`` (OIHW conv weights → HWIO kernels, Linear weights →
+    transposed kernels, BatchNorm weight → scale, running statistics →
+    batch_stats)."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf in _BN_LEAVES:
+            group, leaf = "batch_stats", _BN_LEAVES[leaf]
+        else:
+            group = "params"
+            if leaf == "weight" and arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif leaf == "weight" and arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            elif leaf == "weight":
+                leaf = "scale"
+        node = out[group]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
     return out
 
 

@@ -46,6 +46,20 @@ def test_attention_step_kernel_matches_plain(cuda, b, k, t, h, v):
     torch.testing.assert_close(ck, cp, atol=1e-4, rtol=0)
 
 
+def test_attention_step_refuses_inputs_that_require_grad(cuda):
+    """The launch records no graph: under grad mode a weight that requires
+    grad raises before anything is launched; under no_grad it runs."""
+    args = list(_step_args(cuda, 4, 2, 16, 64, 50))
+    args[5] = args[5].requires_grad_()
+    before = k1.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        k1.attention_step(*args, beam=2)
+    assert k1.launches == before
+    with torch.no_grad():
+        k1.attention_step(*args, beam=2)
+    assert k1.launches == before + 1
+
+
 def test_quad_iou_gather_matches_plain(cuda):
     rng = np.random.default_rng(1)
     quads = torch.from_numpy(rng.uniform(0, 50, (400, 4, 2)).astype(np.float32)).to(cuda)
