@@ -80,7 +80,33 @@ run with a traceback and a non-zero exit:
    OHEM, focal, multiscale, freeze_first) on 6 synthetic pages with COCO
    labels, GPU-resident and streamed, and RAdam + Lookahead + EMA over 6
    steps (one Lookahead sync), with step seconds, peak memory, validation
-   loss and soft dice, and ``best.msgpack`` read by ``EAST``.
+   loss and soft dice, and ``best.msgpack`` read by ``EAST``;
+11. reference weights, TPS, vis: seeded state dicts of the reference's
+   layout (EAST-R50 with every key ``convert_east`` reads; TRBA full plan,
+   hidden 256, 194 classes, every key of ``convert_trba``, and a
+   ``config.json``) written with ``torch.save`` and served as ``file://``
+   release URLs to ``EAST()`` and ``TRBA()`` with no path, an empty HOME and
+   an empty cache: every leaf loaded and none skipped, a second construction
+   reads the cache and fetches nothing, a pinned wrong sha256 is refused and
+   leaves no file; then ``Pipeline.predict(vis=True)`` on 3 full-width pages
+   with the converted models and phase 3's geometry bias and threshold (25
+   K1 steps and at least 2 K2 launches a page, finite words, the image at
+   the page's size, the page darkened by 0.3 far from every box and every
+   reading-order line, the same boxes as without ``vis``; seconds a page
+   with and without), ``process_batch(vis=True)`` on 8 pages, and the CLI's
+   ``ocr --vis`` and ``detect --vis`` (at phase 3's threshold) as
+   subprocesses (their PNG decodes to the page's size);
+   ``TRBAModel(use_tps=True)`` at full width beam-decodes
+   256 crops (beam 8, R = 2048) in 25 K1 steps, with the same tokens as the
+   model without TPS (identity TPS, shared weights) but for near-ties, its
+   encode seconds beside the plain model's and its peak memory (a row may
+   read otherwise only as a near-tie, confidence within 1e-4), and a micro
+   ``use_tps=True`` model on the card against the CPU; and
+   ``create_collage`` on the card's maps of one page.
+
+The script sets ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` for itself and its
+subprocesses (phase 11 lifts it while it fetches from ``file://``): a
+constructor that finds no checkpoint would otherwise try the network.
 
 It prints the card's name and power limit, one JSON line with a row per
 kernel (K1 and K2 launches from phase 5, K3 launches from phase 8), and last
@@ -95,6 +121,8 @@ import contextlib
 import io
 import json
 import os
+import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -103,11 +131,16 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
 
+# no constructor here fetches the reference's release over the network
+os.environ["MANUSCRIPT_TPU_NO_DOWNLOAD"] = "1"
+
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -119,7 +152,7 @@ def check(ok, what) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"\n=== {name} ===", flush=True)
+    print(f"\n=== {name} === ({time.perf_counter() - START:.1f} s since the start)", flush=True)
 
 
 def graph_time_ms(torch, fn, calls: int = 20, replays: int = 7) -> float:
@@ -246,6 +279,20 @@ def device_trace(torch, fn) -> dict:
     both = sum(union_us(ivs) for ivs in spans.values()) / 1e6 - busy
     return {"wall": wall, "busy": busy, "idle": 1.0 - busy / wall, "streams": len(spans),
             "two_at_once": both}
+
+
+def word_sized_boxes(torch, det, page) -> None:
+    """Random weights give sub-pixel geometry and scores near 0.4: set the
+    geometry bias to a word-sized quad (24×8 map px) and the threshold to the
+    99.5th percentile of ``page``'s score map, so that phase A emits word
+    boxes and phase B recognizes them."""
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+
+    with torch.no_grad():
+        det.model.geo_head.bias.copy_(torch.tensor([-12.0, -4, 12, -4, 12, 4, -12, 4]))
+        x = torch.from_numpy(detector_preprocess_host(page, det.target_size)).to(det.device)
+        score = det.model(((x.to(det.dtype) / 255.0 - 0.5) / 0.5)[None])["score"]
+        det.score_thresh = float(torch.quantile(score.flatten().float(), 0.995))
 
 
 def words_of(page) -> list:
@@ -1094,6 +1141,428 @@ def training(torch, k1) -> int:
     return launches
 
 
+class _RefState:
+    """A state dict of the reference's layout, filled from a seeded torch
+    generator with LeCun-scaled weights and non-trivial BatchNorm."""
+
+    def __init__(self, torch, gen):
+        self.torch, self.gen, self.s = torch, gen, {}
+
+    def arr(self, *shape, scale=1.0):
+        return self.torch.randn(shape, generator=self.gen) * scale
+
+    def bn(self, key, c):
+        t = self.torch
+        self.s[f"{key}.weight"] = t.rand(c, generator=self.gen) * 0.5 + 0.5
+        self.s[f"{key}.bias"] = self.arr(c, scale=0.1)
+        self.s[f"{key}.running_mean"] = self.arr(c, scale=0.1)
+        self.s[f"{key}.running_var"] = t.rand(c, generator=self.gen) + 0.5
+        self.s[f"{key}.num_batches_tracked"] = t.tensor(1)
+
+    def conv(self, key, o, i, k, bias=False):
+        self.s[f"{key}.weight"] = self.arr(o, i, k, k, scale=(i * k * k) ** -0.5)
+        if bias:
+            self.s[f"{key}.bias"] = self.arr(o, scale=0.1)
+
+    def linear(self, key, o, i, bias=True):
+        self.s[f"{key}.weight"] = self.arr(o, i, scale=i ** -0.5)
+        if bias:
+            self.s[f"{key}.bias"] = self.arr(o, scale=0.1)
+
+    def lstm(self, key, i, h, suffix=""):
+        for name, cols in (("weight_ih", i), ("weight_hh", h)):
+            self.s[f"{key}.{name}{suffix}"] = self.arr(4 * h, cols, scale=cols ** -0.5)
+        for name in ("bias_ih", "bias_hh"):
+            self.s[f"{key}.{name}{suffix}"] = self.arr(4 * h, scale=0.1)
+
+
+def reference_east_state(torch, gen) -> dict:
+    """EAST-R50 with every key ``convert_east`` reads."""
+    b = _RefState(torch, gen)
+    bb = "backbone.extractor"
+    b.conv(f"{bb}.conv1", 64, 3, 7)
+    b.bn(f"{bb}.bn1", 64)
+    planes, in_ch = 64, 64
+    for stage, blocks in enumerate((3, 4, 6, 3), start=1):
+        for i in range(blocks):
+            base = f"{bb}.layer{stage}.{i}"
+            b.conv(f"{base}.conv1", planes, in_ch if i == 0 else planes * 4, 1)
+            b.bn(f"{base}.bn1", planes)
+            b.conv(f"{base}.conv2", planes, planes, 3)
+            b.bn(f"{base}.bn2", planes)
+            b.conv(f"{base}.conv3", planes * 4, planes, 1)
+            b.bn(f"{base}.bn3", planes * 4)
+            if i == 0:
+                b.conv(f"{base}.downsample.0", planes * 4, in_ch, 1)
+                b.bn(f"{base}.downsample.1", planes * 4)
+        in_ch, planes = planes * 4, planes * 2
+    for n, (cin, mid, cout) in enumerate(
+        [(2048, 512, 512), (1536, 256, 256), (768, 128, 128), (384, 64, 32)], start=1
+    ):
+        b.conv(f"decoder.block{n}.conv1x1.0", mid, cin, 1, bias=True)
+        b.bn(f"decoder.block{n}.conv1x1.1", mid)
+        b.conv(f"decoder.block{n}.conv3x3.0", cout, mid, 3, bias=True)
+        b.bn(f"decoder.block{n}.conv3x3.1", cout)
+    b.conv("output_head.score_map", 1, 32, 1, bias=True)
+    b.conv("output_head.geo_map", 8, 32, 1, bias=True)
+    return b.s
+
+
+def reference_trba_state(torch, gen, num_classes: int = 194, hidden: int = 256) -> dict:
+    """TRBA (full SEResNet31 plan) with every key ``convert_trba`` reads."""
+    b = _RefState(torch, gen)
+    b.conv("cnn.conv0.0", 64, 3, 3)
+    b.bn("cnn.conv0.1", 64)
+    b.conv("cnn.conv0.3", 128, 64, 3)
+    b.bn("cnn.conv0.4", 128)
+    in_planes = 128
+    for stage, (planes, blocks, stride) in enumerate(
+        [(256, 1, 2), (256, 2, 1), (512, 5, 2), (512, 3, 1)], start=1
+    ):
+        for i in range(blocks):
+            base = f"cnn.layer{stage}.{i}"
+            b.conv(f"{base}.conv1", planes, in_planes if i == 0 else planes, 3)
+            b.bn(f"{base}.bn1", planes)
+            b.conv(f"{base}.conv2", planes, planes, 3)
+            b.bn(f"{base}.bn2", planes)
+            b.linear(f"{base}.se.fc.0", planes // 16, planes, bias=False)
+            b.linear(f"{base}.se.fc.2", planes, planes // 16, bias=False)
+            if i == 0 and (stride != 1 or in_planes != planes):
+                b.conv(f"{base}.downsample.0", planes, in_planes, 1)
+                b.bn(f"{base}.downsample.1", planes)
+        in_planes = planes
+    for n in (0, 3):
+        b.conv(f"cnn.conv_out.{n}", 512, 512, 2)
+        b.bn(f"cnn.conv_out.{n + 1}", 512)
+    for i, cin in ((0, 512), (1, hidden)):
+        b.lstm(f"enc_rnn.{i}.rnn", cin, hidden, "_l0")
+        b.lstm(f"enc_rnn.{i}.rnn", cin, hidden, "_l0_reverse")
+        b.linear(f"enc_rnn.{i}.linear", hidden, 2 * hidden)
+    cell = "attn.attention_cell"
+    b.linear(f"{cell}.i2h", hidden, hidden, bias=False)
+    b.linear(f"{cell}.h2h", hidden, hidden)
+    b.linear(f"{cell}.score", 1, hidden, bias=False)
+    b.lstm(f"{cell}.rnn", hidden + num_classes, hidden)
+    b.linear("attn.generator", num_classes, hidden)
+    return b.s
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """Inside: the environment with ``values`` set (None: removed)."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def constructed(fn):
+    """``fn()`` with its standard output captured → (result, output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    print(out.getvalue(), end="")
+    return result, out.getvalue()
+
+
+def fetched_reference_models(torch, tmp: Path):
+    """Phase 11a: the reference-layout checkpoints through the first-use
+    fetch → (EAST, TRBA) on the card, converted."""
+    from manuscript_tpu_torch import EAST, TRBA
+    from manuscript_tpu_torch.utils import weights as W
+
+    gen = torch.Generator().manual_seed(11)
+    release = tmp / "release"
+    release.mkdir()
+    t0 = time.perf_counter()
+    east_state, trba_state = reference_east_state(torch, gen), reference_trba_state(torch, gen)
+    torch.save({"model_state": east_state}, release / "east.pth")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in trba_state.items()}}, release / "trba.pth")
+    (release / "trba.json").write_text(json.dumps(
+        {"max_len": 25, "hidden_size": 256, "img_h": 64, "img_w": 256}))
+    print(f"reference-layout checkpoints: EAST-R50 {len(east_state)} tensors "
+          f"({(release / 'east.pth').stat().st_size / 2**20:.1f} MiB), TRBA {len(trba_state)} tensors "
+          f"({(release / 'trba.pth').stat().st_size / 2**20:.1f} MiB), written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    urls = {f"MANUSCRIPT_TPU_{n}_URL": (release / f).as_uri()
+            for n, f in (("EAST", "east.pth"), ("TRBA", "trba.pth"), ("TRBA_CONFIG", "trba.json"))}
+    gone = {k: (tmp / "gone").as_uri() for k in urls}
+    (tmp / "home").mkdir()
+    with environment(HOME=tmp / "home", MANUSCRIPT_TPU_CACHE=tmp / "cache",
+                     MANUSCRIPT_TPU_NO_DOWNLOAD=None, **urls):
+        t0 = time.perf_counter()
+        (det, rec), log = constructed(lambda: (EAST(allow_random_init=False),
+                                               TRBA(allow_random_init=False)))
+        seconds = time.perf_counter() - t0
+        counts = [int(n) for n in re.findall(r"\[convert\] loaded (\d+) tensors", log)]
+        print(f"EAST() and TRBA() with no path: fetched over file://, converted and loaded in "
+              f"{seconds:.2f} s; loaded tensors {counts} of {len(det.model.state_dict())} and "
+              f"{len(rec.model.state_dict())}; TRBA config max_len {rec.max_length}, hidden "
+              f"{rec.hidden_size}, plan {rec.cnn_stage_plan}")
+        check(counts == [len(det.model.state_dict()), len(rec.model.state_dict())], counts)
+        check("skipped" not in log and log.count("Downloading") == 3, log)
+        check((rec.max_length, rec.hidden_size, rec.img_h, rec.cnn_stage_plan) == (25, 256, 64, "full"),
+              rec.config_path)
+        with environment(**gone):
+            (det2, rec2), log = constructed(lambda: (EAST(allow_random_init=False),
+                                                     TRBA(allow_random_init=False)))
+        check("Downloading" not in log, log)
+        check(det2.weights_path == det.weights_path and rec2.model_path == rec.model_path,
+              (det2.weights_path, rec2.model_path))
+        for a, b in ((det, det2), (rec, rec2)):
+            sa, sb = a.model.state_dict(), b.model.state_dict()
+            check(all(torch.equal(sa[k], sb[k]) for k in sa), "cache copy differs")
+        del det2, rec2
+        print(f"second construction: from the cache ({det.weights_path}, {rec.model_path}), "
+              "nothing fetched, the same weights")
+
+        saved = W.PINNED_HASHES_FILE
+        W.PINNED_HASHES_FILE = tmp / "release_hashes.json"
+        W.pin_sha256("east", "0" * 64)
+        refused = None
+        try:
+            with environment(MANUSCRIPT_TPU_CACHE=tmp / "cache2"), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                EAST(allow_random_init=False)
+        except W.MissingWeightsError as e:
+            refused = e
+        finally:
+            W.PINNED_HASHES_FILE = saved
+        left = [p for p in (tmp / "cache2").rglob("*") if p.is_file()]
+        msgs = [str(w.message) for w in caught]
+        check(refused is not None and not left and any("sha256 mismatch" in m for m in msgs),
+              (refused, left, msgs))
+        print(f"a pinned wrong sha256: refused ({msgs[0][:80]}...), no file left in the cache")
+    return det, rec
+
+
+def far_from_words(page_obj, shape, margin: int = 20):
+    """Pixels more than ``margin`` px from every word box and more than 6 px
+    from every reading-order line."""
+    from PIL import Image, ImageDraw
+
+    far = np.ones(shape[:2], bool)
+    centers = []
+    for w_ in words_of(page_obj):
+        poly = np.asarray(w_.polygon, np.float64)
+        x0, y0 = np.floor(poly.min(0)).astype(int) - margin
+        x1, y1 = np.ceil(poly.max(0)).astype(int) + margin
+        far[max(y0, 0) : max(y1, 0), max(x0, 0) : max(x1, 0)] = False
+        centers.append(tuple(poly.mean(0)))
+    lines = Image.new("L", (shape[1], shape[0]), 0)
+    draw = ImageDraw.Draw(lines)
+    for p, c in zip(centers, centers[1:]):
+        draw.line([p, c], fill=1, width=13)
+    return far & (np.asarray(lines) == 0)
+
+
+def vis_pages(torch, det, rec, rng, k1, k2, tmp: Path) -> int:
+    """Phase 11b: ``Pipeline.predict(vis=True)``, ``process_batch(vis=True)``
+    and the CLI's ``--vis`` with the converted models → K1 steps of the 3
+    ``predict`` pages."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.ops.image import decode_png, encode_png
+
+    pages = [synthetic_page(rng) for _ in range(4)]
+    word_sized_boxes(torch, det, pages[0])
+    pipe = Pipeline(det, rec, beam_size=8)
+    pipe.predict(pages[0], vis=True)  # warm-up: cuDNN plans, word capacity
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = 0
+    drawn, with_vis = [], []
+    for page in pages[1:]:
+        t0 = time.perf_counter()
+        drawn.append(pipe.predict(page, vis=True))
+        torch.cuda.synchronize()
+        with_vis.append(time.perf_counter() - t0)
+    launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+    plain, without = [], []
+    for page in pages[1:]:
+        t0 = time.perf_counter()
+        plain.append(pipe.predict(page))
+        torch.cuda.synchronize()
+        without.append(time.perf_counter() - t0)
+    print(f"Pipeline.predict(vis=True), converted weights, 3 pages 1600×1200: seconds a page "
+          f"{[round(x, 4) for x in with_vis]} (mean {statistics.mean(with_vis):.4f}); without vis "
+          f"{[round(x, 4) for x in without]} (mean {statistics.mean(without):.4f}); launches {launches}")
+    check(launches["attention_step"] == 25 * 3 and launches["quad_iou"] >= 2 * 3, launches)
+    for (page_obj, img), page, ref in zip(drawn, pages[1:], plain):
+        words, ref_words = words_of(page_obj), words_of(ref)
+        check_finite(words)
+        check(len(words) == len(ref_words) > 0, (len(words), len(ref_words)))
+        shift = max(np.abs(np.subtract(a.polygon, b.polygon)).max() for a, b in zip(words, ref_words))
+        check(shift <= 1e-2, shift)
+        arr = np.asarray(img)
+        check(arr.shape == page.shape, arr.shape)
+        far = far_from_words(page_obj, page.shape)
+        dark = (page.astype(np.float32) * np.float32(1 - 0.3)).astype(np.uint8)
+        check(far.mean() > 0.05 and np.array_equal(arr[far], dark[far]), far.mean())
+        print(f"  {len(words)} words, texts {sum(bool(w.text) for w in words)}; box shift vs "
+              f"no vis {shift:.2e} px; far pixels {far.mean():.3f} of the page, all the page "
+              "darkened by 0.3")
+
+    batch = [synthetic_page(rng) for _ in range(8)]
+    k1.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.process_batch(batch, vis=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(len(out) == 8 and all(np.asarray(im).shape == pg.shape for (_, im), pg in zip(out, batch)),
+          len(out))
+    print(f"process_batch(vis=True) on 8 pages: {dt:.4f} s ({8 / dt:.4f} pages/s), K1 steps "
+          f"{k1.launches}, {sum(len(words_of(p)) for p, _ in out)} words")
+
+    path = tmp / "page.png"
+    path.write_bytes(encode_png(pages[1]))
+    env = dict(os.environ, HOME=str(tmp / "home"), MANUSCRIPT_TPU_CACHE=str(tmp / "cache"))
+    env.pop("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT", None)
+    commands = {"ocr": ["ocr", str(path), "--vis", str(tmp / "ocr.png"), "--out", str(tmp / "ocr.json")],
+                "detect": ["detect", str(path), "--vis", str(tmp / "detect.png"),
+                           "--thresh", f"{det.score_thresh:.6f}"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "manuscript_tpu_torch", *args], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, args in commands.items()}
+    try:
+        logs = {name: proc.communicate(timeout=400)[0] for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"{name}: {logs[name][-3000:]}")
+        img = decode_png((tmp / f"{name}.png").read_bytes())
+        check(img.shape == pages[1].shape, img.shape)
+    n_detected = int(re.search(r": (\d+) words", logs["detect"]).group(1))
+    check(n_detected == 0 or not np.array_equal(img, pages[1]), n_detected)  # words are drawn
+    print(f"CLI ocr --vis and detect --vis (subprocesses, weights from the cache, run at once): "
+          f"{time.perf_counter() - t0:.2f} s; both PNGs decode to {pages[1].shape}; "
+          f"detect says {logs['detect'].strip().splitlines()[-1]!r}")
+    return launches["attention_step"]
+
+
+def tps_through_k1(torch, k1) -> int:
+    """Phase 11c: ``TRBAModel(use_tps=True)`` at full width through K1, and a
+    micro one on the card against the CPU → K1 steps of the full-width beam."""
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.recognizers import TRBA
+    from manuscript_tpu_torch.recognizers.trba import sequence_confidence
+    from manuscript_tpu_torch.utils.quality import QUALITY_DIR
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    plain = init_random_(TRBAModel(194, 256), 2)
+    tps = init_random_(TRBAModel(194, 256, use_tps=True), 3)
+    tps.load_state_dict(plain.state_dict(), strict=False)  # shared weights, identity TPS
+    plain, tps = plain.to(dev).eval(), tps.to(dev).eval()
+    rng = np.random.default_rng(7)
+    strip = np.stack([np.full((64, 256, 3), int(v), np.uint8) for v in rng.integers(150, 256, 256)])
+    for i, (x0, w) in enumerate(zip(rng.integers(0, 60, 256), rng.integers(60, 190, 256))):
+        strip[i, 18:46, x0 : x0 + w] = rng.integers(0, 90, (28, w, 1), dtype=np.uint8)
+    x = (torch.from_numpy(strip).to(dev).float() / 255.0 - 0.5) / 0.5
+    with torch.inference_mode():
+        tps.beam(x[:16], 25, 8), plain.beam(x[:16], 25, 8)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        logits_t, preds_t = tps.beam(x, 25, 8)
+        torch.cuda.synchronize()
+        steps = k1.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logits_p, preds_p = plain.beam(x, 25, 8)
+        conf_t = sequence_confidence(logits_t, preds_t, 2)[1]
+        conf_p = sequence_confidence(logits_p, preds_p, 2)[1]
+        differ = (preds_t != preds_p).any(1)
+        conf_gap = float((conf_t - conf_p)[differ].abs().max()) if differ.any() else 0.0
+        enc = {}
+        for name, m in (("tps", tps), ("plain", plain), ("tps ", tps), ("plain ", plain)):
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.encode(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            enc.setdefault(name.strip(), []).append(statistics.median(times))
+    print(f"TRBAModel(use_tps=True) full width, 256 crops beam 8 (R = 2048): {steps} K1 steps, "
+          f"peak memory {peak:.2f} GiB; tokens equal to the plain model's on "
+          f"{int((~differ).sum())} of 256 rows, the others within {conf_gap:.2e} in confidence; "
+          f"encode seconds (median of 5, in turns) with TPS {enc['tps']}, without {enc['plain']}")
+    check(steps == 25, steps)
+    # the identity warp moves pixels by ~1e-4: a row may read otherwise only
+    # as a near-tie, its confidence within 1e-4 of the plain model's
+    check(conf_gap <= 1e-4, (int(differ.sum()), conf_gap))
+
+    rec = TRBA(QUALITY_DIR / "trba_micro.msgpack", device="cpu")
+    micro = init_random_(TRBAModel(len(rec.itos), rec.hidden_size, rec.sos_id, rec.eos_id,
+                                   rec.blank_id, rec.cnn_stage_plan, use_tps=True), 0)
+    micro.load_state_dict(rec.model.state_dict(), strict=False)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        dense = micro.tps.localization.Dense_1
+        dense.weight.copy_(torch.randn(dense.weight.shape, generator=gen) * 0.02)
+    micro.eval()
+    xm = torch.rand((16, rec.img_h, rec.img_w, 3), generator=gen) * 2 - 1
+    with torch.inference_mode():
+        ref_logits, ref = micro.beam(xm, rec.max_length, 4)
+        micro.to(dev)
+        k1.launches = 0
+        logits, got = micro.beam(xm.to(dev), rec.max_length, 4)
+        torch.cuda.synchronize()
+    err = float((logits.cpu() - ref_logits).abs().max())
+    print(f"micro TRBAModel(use_tps=True), warping TPS: card == CPU tokens "
+          f"{bool(torch.equal(got.cpu(), ref))}, logits max |d| {err:.3e} (bound 1e-3), K1 steps "
+          f"{k1.launches}")
+    check(torch.equal(got.cpu(), ref) and err <= 1e-3 and k1.launches == rec.max_length, err)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return steps
+
+
+def collage_on_card(torch, det, rng) -> None:
+    """Phase 11d: ``create_collage`` of the card's maps of one page."""
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+    from manuscript_tpu_torch.utils.visualize import create_collage
+
+    page = detector_preprocess_host(synthetic_page(rng), det.target_size)
+    with torch.inference_mode():
+        score, geo = det.maps(torch.from_numpy(page).to(det.device)[None])
+    sc, ge = score[0].float().cpu().numpy(), geo[0].float().cpu().numpy()
+    t0 = time.perf_counter()
+    collage = create_collage(page, sc, ge, gt_quads=None, pred_score=sc, pred_geo=ge)
+    print(f"create_collage of the card's maps ({sc.shape}, {ge.shape}): {collage.shape} "
+          f"{collage.dtype} in {time.perf_counter() - t0:.3f} s")
+    check(collage.shape == (640, 3200, 3) and collage.dtype == np.uint8, collage.shape)
+
+
+def reference_weights_tps_vis(torch, rng, k1, k2) -> dict:
+    """Phase 11 → the K1 steps of its runs."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ref_"))
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        det, rec = fetched_reference_models(torch, tmp)
+        vis_steps = vis_pages(torch, det, rec, rng, k1, k2, tmp)
+        tps_steps = tps_through_k1(torch, k1)
+        collage_on_card(torch, det, rng)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"Pipeline.predict(vis=True), 3 pages": vis_steps, "TRBAModel(use_tps=True).beam": tps_steps}
+
+
 def main() -> int:
     import torch
 
@@ -1103,7 +1572,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from manuscript_tpu_torch import EAST, TRBA, Pipeline
     from manuscript_tpu_torch.ops import _build, attention_step as k1, lanms_torch as k3, quad_iou as k2
-    from manuscript_tpu_torch.ops.image import detector_preprocess_host
     from manuscript_tpu_torch.ops.lanms_torch import _predecessor_pairs, locality_aware_nms_parallel
 
     smi = subprocess.run(
@@ -1250,15 +1718,7 @@ def main() -> int:
     first_pass_cost(torch, rec)
     pipe = Pipeline(det, rec, beam_size=8)
     pages = [synthetic_page(rng) for _ in range(4)]
-    # random weights give sub-pixel geometry and scores near 0.4: set the
-    # geometry bias to a word-sized quad (24×8 map px) and the threshold to
-    # the 99.5th percentile of the first page's score map, so phase A emits
-    # word boxes and phase B recognizes them
-    with torch.no_grad():
-        det.model.geo_head.bias.copy_(torch.tensor([-12.0, -4, 12, -4, 12, 4, -12, 4]))
-        x = torch.from_numpy(detector_preprocess_host(pages[0], det.target_size)).to(dev)
-        score = det.model(((x.to(det.dtype) / 255.0 - 0.5) / 0.5)[None])["score"]
-        det.score_thresh = float(torch.quantile(score.flatten().float(), 0.995))
+    word_sized_boxes(torch, det, pages[0])
     pipe.predict(pages[0])  # warm-up: cuDNN plans, word capacity
     torch.cuda.synchronize()
     k1.launches = k1.kernel_launches = k2.launches = 0
@@ -1356,7 +1816,13 @@ def main() -> int:
     print(smi)
     train_launches = training(torch, k1)
 
+    # ---- 11. reference weights, TPS, vis -----------------------------------------------
+    phase("11 reference weights, TPS, vis")
+    print(smi)
+    ref_launches = reference_weights_tps_vis(torch, rng, k1, k2)
+
     # ---- result ---------------------------------------------------------------
+    phase("result")
     print(smi)
     # the rows of the batched path: K1 at its largest beam-row count (8·B·nw
     # of the densest chunk), K2 at the chunk's predecessor call, the larger
@@ -1368,7 +1834,7 @@ def main() -> int:
     k3_ms, k3_plain_ms, k3_bound, k3_by, _ = k3_rows_[8192]
     print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
           f"Pipeline.predict on 3 pages in phase 3: {launches}; training's validations in "
-          f"phase 10: {train_launches} K1 steps), K3 launches of "
+          f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}), K3 launches of "
           f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
           f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
     rows = [

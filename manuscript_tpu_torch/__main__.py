@@ -1,13 +1,15 @@
 """Command line of the port (counterpart of ``manuscript_tpu/__main__.py``),
 on the card:
 
-    python -m manuscript_tpu_torch ocr page.jpg [more.jpg ...] [--out result.json]
-    python -m manuscript_tpu_torch detect page.jpg [--thresh 0.6] [--out boxes.json]
+    python -m manuscript_tpu_torch ocr page.jpg [more.jpg ...] [--out result.json] [--vis page.png]
+    python -m manuscript_tpu_torch detect page.jpg [--thresh 0.6] [--out boxes.json] [--vis boxes.png]
     python -m manuscript_tpu_torch recognize crop1.png crop2.png [--mode greedy]
     python -m manuscript_tpu_torch serve [--port 8000]
 
-Weights come from ``~/.manuscript_tpu/{east,trba}`` (or ``--weights``); with
-none there, ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1`` allows untrained ones.
+Weights come from ``--weights``, else ``~/.manuscript_tpu/{east,trba}``, else
+the reference's release fetched there on first use; with none of these,
+``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1`` allows untrained ones. ``--vis``
+writes the page drawn with its words (PIL; the format from the file name).
 """
 
 from __future__ import annotations
@@ -61,7 +63,11 @@ def cmd_ocr(args):
         return
     for image in args.images:
         t0 = time.time()
-        page = pipe.predict(image, vis=bool(args.vis), profile=args.profile)
+        if args.vis:
+            page, vis_img = pipe.predict(image, vis=True, profile=args.profile)
+            vis_img.save(args.vis)
+        else:
+            page = pipe.predict(image, profile=args.profile)
         result = {"image": image, "seconds": round(time.time() - t0, 3),
                   "text": pipe.get_text(page), "page": page.model_dump()}
         if args.out:
@@ -78,6 +84,8 @@ def cmd_detect(args):
     for image in args.images:
         res = det.predict(image, vis=bool(args.vis), profile=args.profile)
         print(f"{image}: {sum(len(b.words) for b in res['page'].blocks)} words")
+        if args.vis and res["vis_image"] is not None:
+            res["vis_image"].save(args.vis)
         if args.out:
             with open(args.out, "w", encoding="utf-8") as f:
                 json.dump(res["page"].model_dump(), f, ensure_ascii=False)
@@ -121,7 +129,7 @@ def main(argv=None):
     p = sub.add_parser("ocr", help="full-page OCR")
     p.add_argument("images", nargs="+")
     p.add_argument("--out", help="write JSON result")
-    p.add_argument("--vis", help="write visualization PNG (not ported yet)")
+    p.add_argument("--vis", help="write visualization PNG")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--mode", choices=["beam", "greedy"], default="beam")
     p.add_argument("--batch-pages", type=int, default=4,
@@ -143,7 +151,7 @@ def main(argv=None):
     p.add_argument("--weights")
     p.add_argument("--thresh", type=float, default=0.6)
     p.add_argument("--target-size", type=int, default=1280)
-    p.add_argument("--vis", help="(not ported yet)")
+    p.add_argument("--vis", help="write visualization PNG")
     p.add_argument("--out")
     p.add_argument("--profile", action="store_true")
     p.set_defaults(func=cmd_detect)

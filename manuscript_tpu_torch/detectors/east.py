@@ -1,12 +1,17 @@
 """EAST detector wrapper (counterpart of ``manuscript_tpu/detectors/east.py``),
 with the JAX wrapper's defaults and its ``predict``/``predict_batch`` API.
 
-Weights: a flax ``.msgpack`` checkpoint read with the port's own reader,
-given as ``weights_path`` or found in ``~/.manuscript_tpu/east``; else, when
-``allow_random_init`` (by default ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``)
-allows it, weights from a seeded generator. Nothing is ever downloaded. The
-network computes in ``dtype`` (bfloat16 by default); score and geometry
-come out float32.
+Weights, in this order: ``weights_path``; the first ``.msgpack``, else
+``.pth``, under ``~/.manuscript_tpu/east`` (``MANUSCRIPT_TPU_CACHE``); the
+reference's released ``.pth``, fetched into that cache on first use
+(``utils/weights.fetch_artifact``; ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` turns the
+fetch off). A flax ``.msgpack`` is read with the port's own reader, a
+``.pth`` converted (``utils/convert.py``). With none of these, weights from
+a seeded generator only when ``allow_random_init`` (by default
+``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``) allows them; else the constructor
+raises. The network computes in ``dtype`` (bfloat16 by default); score and
+geometry come out float32. ``vis=True`` adds the page drawn by
+``utils/visualize.visualize_page`` (PIL) as ``"vis_image"``.
 
 ``predict`` per page: the host resizes the page to target² uint8; on the
 device the network, the cell decode and the candidate compaction run; then
@@ -47,19 +52,17 @@ from ..ops.postprocess_torch import postprocess_boxes
 from ..ops.reading_order import reading_order_permutation
 from ..types import Block, Page, Word
 from ..utils.device import resolve_device
+from ..utils.visualize import visualize_page
 from ..utils.weights import (
+    MissingWeightsError,
     allow_random_init_default,
     cached_checkpoint,
+    fetch_artifact,
     init_random_,
     msgpack_restore,
     msgpack_serialize,
     params_from_jax,
     params_to_jax,
-)
-
-VIS_NOT_PORTED = (
-    "vis=True needs utils/visualize.py (PIL drawing), which the port does not "
-    "have yet: ROADMAP §1 item 8"
 )
 
 
@@ -111,22 +114,30 @@ class EAST:
         if weights_path is not None and not os.path.exists(str(weights_path)):
             raise FileNotFoundError(f"Weights not found: {weights_path}")
         if weights_path is None:
-            weights_path = cached_checkpoint("east")
+            weights_path = cached_checkpoint("east") or fetch_artifact("east")
         if allow_random_init is None:
             allow_random_init = allow_random_init_default()
         self.weights_path = weights_path
         self.allow_random_init = allow_random_init
 
         self.model = EASTModel(backbone)
-        if weights_path is not None:
+        if weights_path is not None and str(weights_path).endswith(".pth"):
+            from ..utils.convert import convert_east, load_torch_state_dict, merge_converted
+
+            state = load_torch_state_dict(str(weights_path))
+            self.model.load_state_dict(
+                merge_converted(self.model.state_dict(), convert_east(state, backbone))
+            )
+        elif weights_path is not None:
             self.model.load_state_dict(params_from_jax(msgpack_restore(Path(weights_path))))
         elif allow_random_init:
             init_random_(self.model, seed)
         else:
-            raise ValueError(
-                "EAST found no checkpoint (none given, none in ~/.manuscript_tpu/east): "
-                "pass weights_path=, or allow_random_init=True (or set "
-                "MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) for untrained weights"
+            raise MissingWeightsError(
+                "EAST found no checkpoint (none given, none in ~/.manuscript_tpu/east, "
+                "and the release could not be fetched): pass weights_path=, or "
+                "allow_random_init=True (or set MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) "
+                "for untrained weights"
             )
         self.model.to(device=self.device, dtype=dtype).eval()
 
@@ -195,8 +206,6 @@ class EAST:
         launch of network, decode and compaction; with ``nms="device"`` also
         NMS and post-processing), ``fetch`` (the wait for the device and the
         copy), ``lanms`` and ``boxes`` (the host LANMS and box chain)."""
-        if vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
         t = [time.perf_counter()]
         img = read_image(img_or_path)
         orig_h, orig_w = img.shape[:2]
@@ -233,7 +242,7 @@ class EAST:
             print("  " + ", ".join(f"{n} {s:.3f}s" for n, s in self.last_timings.items())
                   + f"; boxes out: {len(output)}")
         return self._build_result(
-            output, sort_reading_order,
+            img if vis else None, output, sort_reading_order,
             (score[0], geo[0]) if return_maps else None,
         )
 
@@ -251,8 +260,6 @@ class EAST:
         before the first is fetched), then the host LANMS and box chain per
         page. Returns one result dict per page, as ``predict``. Short chunks
         are not padded: nothing is compiled for a batch size."""
-        if vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
         loaded = [read_image(im) for im in images]
         pending = []
         for start in range(0, len(loaded), max(1, batch_size)):
@@ -269,10 +276,13 @@ class EAST:
             for img, c in zip(chunk, cands_np):
                 nms_quads = locality_aware_nms(compact_topk(c), self.iou_threshold)
                 output = self._box_chain(nms_quads, *img.shape[:2])
-                results.append(self._build_result(output, sort_reading_order, None))
+                results.append(self._build_result(img if vis else None, output, sort_reading_order, None))
         return results
 
-    def _build_result(self, output_quads: np.ndarray, sort_reading_order: bool, maps) -> Dict[str, Any]:
+    def _build_result(self, vis_img, output_quads: np.ndarray, sort_reading_order: bool,
+                      maps) -> Dict[str, Any]:
+        """The result dict; ``vis_img`` (the page, or None) is drawn with the
+        words, without reading-order numbers."""
         words = [
             Word(
                 polygon=quad[:8].reshape(4, 2).tolist(),
@@ -283,9 +293,10 @@ class EAST:
         if sort_reading_order and words:
             boxes = [quad_bbox_int(np.asarray(w.polygon, dtype=np.int32)) for w in words]
             words = [words[i] for i in reading_order_permutation(boxes)]
+        page = Page(blocks=[Block(words=words)])
         return {
-            "page": Page(blocks=[Block(words=words)]),
-            "vis_image": None,
+            "page": page,
+            "vis_image": None if vis_img is None else visualize_page(vis_img, page, show_order=False),
             "score_map": None if maps is None else maps[0].cpu().numpy(),
             "geo_map": None if maps is None else maps[1].permute(2, 0, 1).cpu().numpy(),
         }

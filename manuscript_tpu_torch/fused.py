@@ -15,7 +15,8 @@
     slots per page (``nw`` from the capacity buckets, one per chunk);
   - phase B on the device: TRBA encode → greedy or beam decode →
     confidences, for the chunk's B·nw slots in one pass;
-  - the page build: token decode, reading order, ``Page``/``Block``/``Word``.
+  - the page build: token decode, reading order, ``Page``/``Block``/``Word``,
+    and with ``vis`` the page drawn by ``utils/visualize.visualize_page``.
 
 * ``"device"``: one program per chunk: phase A, then the word selection
   and the crops gathered on the device from the detector-resolution page
@@ -61,6 +62,7 @@ from .ops.lanms_torch import locality_aware_nms_parallel
 from .ops.postprocess_torch import postprocess_boxes
 from .ops.reading_order import reading_order_permutation
 from .types import Block, Page, Word
+from .utils.visualize import visualize_page
 
 
 class _Pending:
@@ -373,8 +375,9 @@ class FusedOCR:
         timings["recognize"] = time.perf_counter() - t0
         return imgs, boxes, rows_used, pending, nw, timings
 
-    def _finish_rec_chunk(self, rec_res) -> List[Page]:
-        """Native stage 5 (finish thread): wait for the texts, build pages."""
+    def _finish_rec_chunk(self, rec_res, vis: bool = False) -> List[Any]:
+        """Native stage 5 (finish thread): wait for the texts, build pages
+        (with ``vis``, (page, drawn page) pairs)."""
         imgs, boxes, rows_used, pending, nw, timings = rec_res
         t0 = time.perf_counter()
         preds, confs = pending.wait()
@@ -382,9 +385,9 @@ class FusedOCR:
         for i in range(len(imgs)):
             src_idx = np.full(nw, -1, np.int64)
             src_idx[: len(rows_used[i])] = rows_used[i]
-            pages.append(self._build_page_result(
+            pages.append(self._page_or_vis(imgs[i], self._build_page_result(
                 boxes[i], src_idx, preds[i * nw : (i + 1) * nw], confs[i * nw : (i + 1) * nw]
-            ))
+            ), vis))
         timings["finish"] = time.perf_counter() - t0
         return pages
 
@@ -450,16 +453,16 @@ class FusedOCR:
         timings["dispatch"], timings["slots"] = time.perf_counter() - t0, nw
         return imgs, pending, nw, timings
 
-    def _finish_chunk(self, imgs, pending: _Pending, nw: int, timings) -> List[Page]:
+    def _finish_chunk(self, imgs, pending: _Pending, nw: int, timings, vis: bool = False) -> List[Any]:
         """Device-crop path (main thread): wait for the chunk, build its
         pages; a page that overflowed an auto capacity runs again."""
         t0 = time.perf_counter()
         outs = pending.wait()
-        pages = [self._finish(img, [o[i] for o in outs], nw) for i, img in enumerate(imgs)]
+        pages = [self._finish(img, [o[i] for o in outs], nw, vis) for i, img in enumerate(imgs)]
         timings["finish"] = time.perf_counter() - t0
         return pages
 
-    def _finish(self, img, outs, nw: int, retried: bool = False) -> Page:
+    def _finish(self, img, outs, nw: int, vis: bool = False, retried: bool = False):
         boxes9, confs, preds, src_idx, n_eligible = outs
         # words past the capacity kept their boxes but got no text; in auto
         # mode grow the bucket and run the page again at the grown capacity.
@@ -475,8 +478,15 @@ class FusedOCR:
                     self.max_words = grown
                     if not retried:
                         _, pending, nw2, _ = self._dispatch_prepared(self._prepare_chunk([img]))
-                        return self._finish(img, [o[0] for o in pending.wait()], nw2, retried=True)
-        return self._build_page_result(boxes9, src_idx, preds, confs)
+                        return self._finish(img, [o[0] for o in pending.wait()], nw2, vis,
+                                            retried=True)
+        return self._page_or_vis(img, self._build_page_result(boxes9, src_idx, preds, confs), vis)
+
+    @staticmethod
+    def _page_or_vis(img: np.ndarray, page: Page, vis: bool):
+        """The page, or with ``vis`` (page, the page image drawn with the words
+        numbered in reading order)."""
+        return (page, visualize_page(img, page, show_order=True)) if vis else page
 
     # ---- page ----------------------------------------------------------------
 
@@ -510,14 +520,15 @@ class FusedOCR:
         )
         return confs, preds
 
-    def predict(self, image) -> Page:
-        """One page: the chunk stages, one after another, on a chunk of one."""
+    def predict(self, image, vis: bool = False):
+        """One page: the chunk stages, one after another, on a chunk of one →
+        Page, or (Page, PIL image) with ``vis``."""
         prep = self._prepare_chunk([image])
         if self.crop_source == "native":
             rec = self._dispatch_rec_chunk(self._crop_stage(*self._dispatch_detect_prepared(prep)))
-            page = self._finish_rec_chunk(rec)[0]
+            page = self._finish_rec_chunk(rec, vis)[0]
         else:
-            page = self._finish_chunk(*self._dispatch_prepared(prep))[0]
+            page = self._finish_chunk(*self._dispatch_prepared(prep), vis=vis)[0]
         self.last_timings = prep[-1]
         self.chunk_timings = [prep[-1]]
         return page
@@ -528,7 +539,7 @@ class FusedOCR:
         b = self.batch_pages
         return [list(images[i : i + b]) for i in range(0, len(images), b)]
 
-    def _predict_many_native(self, chunks, queue_depth: int, timings: list) -> List[Page]:
+    def _predict_many_native(self, chunks, queue_depth: int, timings: list, vis: bool) -> List[Any]:
         """The four-stage software pipeline: prep (1 thread) → phase A launch
         (main) → box wait + host crops (2 threads) → phase B launch (main) →
         result wait + page build (2 threads). Chunk i's phase A is launched
@@ -552,16 +563,16 @@ class FusedOCR:
                 crop_f[i] = crop_ex.submit(self._crop_stage, *det_i)
                 if i >= 1:
                     rec = self._dispatch_rec_chunk(crop_f.pop(i - 1).result())
-                    fin_f[i - 1] = fin_ex.submit(self._finish_rec_chunk, rec)
+                    fin_f[i - 1] = fin_ex.submit(self._finish_rec_chunk, rec, vis)
                     while len(fin_f) > queue_depth:
                         results.extend(fin_f.pop(min(fin_f)).result())
             rec = self._dispatch_rec_chunk(crop_f.pop(n - 1).result())
-            fin_f[n - 1] = fin_ex.submit(self._finish_rec_chunk, rec)
+            fin_f[n - 1] = fin_ex.submit(self._finish_rec_chunk, rec, vis)
             for i in sorted(fin_f):
                 results.extend(fin_f[i].result())
         return results
 
-    def _predict_many_device(self, chunks, queue_depth: int, timings: list) -> List[Page]:
+    def _predict_many_device(self, chunks, queue_depth: int, timings: list, vis: bool) -> List[Any]:
         """Device crops: prep in one thread, up to ``queue_depth`` chunks'
         programs in flight, each finished (and any overflowing page run
         again) on the main thread in order."""
@@ -578,20 +589,22 @@ class FusedOCR:
                     preps.append(ex.submit(self._prepare_chunk, chunks[nxt]))
                     nxt += 1
                 if len(in_flight) > queue_depth:
-                    results.extend(self._finish_chunk(*in_flight.pop(0)))
+                    results.extend(self._finish_chunk(*in_flight.pop(0), vis=vis))
         for handle in in_flight:
-            results.extend(self._finish_chunk(*handle))
+            results.extend(self._finish_chunk(*handle, vis=vis))
         return results
 
-    def predict_many(self, images: List[Any], queue_depth: int = 2) -> List[Page]:
-        """OCR many pages, ``batch_pages`` per chunk; ``chunk_timings``
-        then holds each chunk's host-clock stage seconds and slot count."""
+    def predict_many(self, images: List[Any], vis: bool = False, queue_depth: int = 2) -> List[Any]:
+        """OCR many pages, ``batch_pages`` per chunk → Pages, or (Page, PIL
+        image) pairs with ``vis`` (drawn on the finish threads);
+        ``chunk_timings`` then holds each chunk's host-clock stage seconds
+        and slot count."""
         chunks = self._chunks(images)
         if not chunks:
             return []
         timings: List[Dict[str, float]] = []
         run = self._predict_many_native if self.crop_source == "native" else self._predict_many_device
-        results = run(chunks, queue_depth, timings)
+        results = run(chunks, queue_depth, timings, vis)
         self.chunk_timings, self.last_timings = timings, timings[-1]
         return results
 

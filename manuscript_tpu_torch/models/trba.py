@@ -10,7 +10,12 @@ batch statistics, the encoder output passes through dropout
 (``enc_dropout_p``, 0.1 as in the JAX model), the decoder's attention weights
 through its own (``dec_dropout_p``, 0.1), and the CNN's channel dropout runs
 when ``dropblock_p`` > 0. Every draw comes from the ``generator`` given to
-``encode``/``forward``."""
+``encode``/``forward``.
+
+``use_tps`` puts a TPS rectification (``models/tps.py``, ``tps_fiducials``
+points, identity at init) in front of the CNN, as the JAX model's option
+does; ``cast`` moves it to the compute dtype with the CNN, as the JAX model
+gives it its ``dtype``, and its grid and sampling stay float32."""
 
 from __future__ import annotations
 
@@ -42,8 +47,15 @@ class TRBAModel(nn.Module):
         enc_dropout_p: float = 0.1,
         dec_dropout_p: float = 0.1,
         dropblock_p: float = 0.0,
+        use_tps: bool = False,
+        tps_fiducials: int = 20,
     ):
         super().__init__()
+        self.use_tps = use_tps
+        if use_tps:
+            from .tps import TPSTransformer
+
+            self.tps = TPSTransformer(tps_fiducials)
         out_ch = cnn_out_channels or (128 if cnn_stage_plan == "micro" else 512)
         self.enc_dropout_p = enc_dropout_p
         self.cnn = SEResNet31(out_ch, cnn_stage_plan, dropblock_p)
@@ -54,7 +66,7 @@ class TRBAModel(nn.Module):
         )
 
     def cast(self, dtype: torch.dtype) -> "TRBAModel":
-        for m in (self.cnn, self.enc_rnn1, self.enc_rnn2):
+        for m in (self.cnn, self.enc_rnn1, self.enc_rnn2) + ((self.tps,) if self.use_tps else ()):
             m.to(dtype)
         return self
 
@@ -64,6 +76,8 @@ class TRBAModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x (B, H, W, 3) normalized → (B, W', hidden)."""
+        if self.use_tps:
+            x = self.tps(x)  # rectified onto a grid of the input's size
         f = self.cnn(x.permute(0, 3, 1, 2), generator).mean(dim=2)  # height pool
         f = self.enc_rnn2(self.enc_rnn1(f.transpose(1, 2)))
         if self.training and self.enc_dropout_p > 0:

@@ -1,7 +1,8 @@
 """Host box operations of the detector's post-processing, in float64 numpy
 (the port's copy of ``manuscript_tpu/ops/boxes.py``): inverse-shrink
 expansion, rescale to the original resolution, containment and area-anomaly
-filters, axis alignment. All take (n, 9) arrays of [x0..y3, score] rows."""
+filters, axis alignment. All take (n, 9) arrays of [x0..y3, score] rows.
+``quad_to_rbox`` gives a quad's rotated box as cv2's ``minAreaRect`` does."""
 
 from __future__ import annotations
 
@@ -122,3 +123,18 @@ def quad_bbox_int(polygon: np.ndarray) -> tuple:
     x_min, y_min = np.min(poly, axis=0)
     x_max, y_max = np.max(poly, axis=0)
     return (int(x_min), int(y_min), int(x_max), int(y_max))
+
+
+def quad_to_rbox(quad: np.ndarray) -> np.ndarray:
+    """Quad (8 or 9 floats) → rotated box [cx, cy, w, h, angle (degrees)],
+    float32, as cv2 5's ``minAreaRect`` gives it: the rectangle of
+    ``train/east_dataset.min_area_rect``, its angle the direction of its
+    first side, turned by 90° (the sides swapped each time) into [−90, 0)."""
+    from ..train.east_dataset import min_area_rect
+
+    pts = np.asarray(quad, dtype=np.float32).reshape(-1)[:8].reshape(4, 2)
+    (cx, cy), (w, h), side = min_area_rect(pts)
+    angle = float(np.degrees(np.arctan2(float(side[1]), float(side[0]))))
+    while angle >= 0.0 or angle < -90.0:
+        w, h, angle = h, w, angle - 90.0 if angle >= 0.0 else angle + 90.0
+    return np.array([cx, cy, w, h, angle], dtype=np.float32)

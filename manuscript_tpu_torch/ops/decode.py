@@ -3,7 +3,7 @@
 ``compact_candidates`` as fixed-shape tensor ops on the maps' device, both
 with an optional leading page axis (a chunk of pages, or one page's maps
 under several thresholds, decodes in one pass, each page on its own); and on
-the host ``compact_topk`` and ``decode_quads_numpy``.
+the host ``compact_topk``, ``compact_decoded`` and ``decode_quads_numpy``.
 
 A q×q cell is a candidate when any of its pixels clears the threshold; its
 score and 8 geometry offsets are sampled at the cell-centre pixel, and vertex
@@ -97,6 +97,16 @@ def compact_topk(cands: np.ndarray) -> np.ndarray:
     """Host: the candidate rows without the score −1 padding, float32."""
     cands = np.asarray(cands)
     return cands[cands[:, 8] >= 0.0].astype(np.float32)
+
+
+def compact_decoded(quads: np.ndarray, scores: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Host: the valid cells of a decode, in raster order → (n, 9) float32
+    rows."""
+    mask = np.asarray(valid)
+    if not mask.any():
+        return np.zeros((0, 9), dtype=np.float32)
+    q, s = np.asarray(quads)[mask], np.asarray(scores)[mask]
+    return np.concatenate([q, s[:, None]], axis=1).astype(np.float32)
 
 
 def decode_quads_numpy(

@@ -18,6 +18,10 @@ port does not depend on OpenCV, so this module reproduces the two OpenCV
 neither installed it still reads PNG files, through ``decode_png`` (zlib and
 numpy: 8-bit gray, gray + alpha, RGB and RGBA, not interlaced, all five row
 filters). ``encode_png`` writes such files (8-bit gray or RGB, filter 0).
+
+On tensors: ``normalize_u8`` (uint8 → (x/255 − 0.5)/0.5) and
+``resize_bilinear`` (``jax.image.resize``'s "bilinear": half-pixel centres,
+antialiased when it shrinks).
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS  # 2048
@@ -323,3 +329,26 @@ def crop_axis_aligned(image: np.ndarray, polygon: np.ndarray) -> Optional[np.nda
         return region if region.size > 0 else None
     except Exception:
         return None
+
+
+def batch_resize_and_pad(images: Sequence[np.ndarray], img_h: int, img_w: int) -> np.ndarray:
+    """N crops of any size → one (N, img_h, img_w, 3) uint8 batch
+    (``resize_and_pad`` each)."""
+    return np.stack([resize_and_pad(im, img_h, img_w) for im in images], axis=0)
+
+
+def normalize_u8(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] → (x/255 − 0.5)/0.5 in ``dtype``."""
+    x = x.to(dtype) / torch.tensor(255.0, dtype=dtype, device=x.device)
+    return (x - 0.5) / 0.5
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of an NHWC (or HWC) float tensor, as
+    ``jax.image.resize(..., "bilinear")``: half-pixel centres, antialiased
+    when it shrinks."""
+    if x.dim() == 3:
+        return resize_bilinear(x[None], out_h, out_w)[0]
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)

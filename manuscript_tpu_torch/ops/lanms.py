@@ -114,3 +114,16 @@ def locality_aware_nms(boxes: np.ndarray, iou_threshold: float) -> np.ndarray:
     if m == 0:
         return _EMPTY.copy()
     return out[:m].astype(np.float32)
+
+
+# the JAX package's name for its C++ entry; here the C++ library is the only one
+locality_aware_nms_native = locality_aware_nms
+
+
+def native_available() -> bool:
+    """Whether the C++ LANMS builds (or is built) and loads here."""
+    try:
+        _lib()
+    except (OSError, RuntimeError):
+        return False
+    return True

@@ -14,6 +14,11 @@ Two routes, as in the JAX package:
   values. ``process_batch`` uses ``detector.predict_batch`` when there is one
   and recognizes every page's crops in one call.
 
+``vis=True`` makes each result a ``(page, image)`` pair, the image drawn by
+``utils/visualize.visualize_page`` (PIL) with the words numbered in reading
+order, or without numbers for ``predict(recognize_text=False)``, as the JAX
+package draws them.
+
 ``Pipeline(device=None)`` runs on the card and raises when there is none;
 only ``device="cpu"`` runs on the CPU.
 """
@@ -27,13 +32,13 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
-from .detectors.east import VIS_NOT_PORTED
 from .fused import FusedOCR
 from .ops.boxes import quad_bbox_int
 from .ops.image import crop_axis_aligned, read_image
 from .ops.reading_order import reading_order_permutation
 from .types import Page
 from .utils.device import resolve_device
+from .utils.visualize import visualize_page
 
 
 def _page_of(det_out):
@@ -44,6 +49,11 @@ def _page_of(det_out):
     if isinstance(det_out, tuple):
         return det_out[0]
     return det_out
+
+
+def _vis_source(image, image_array: np.ndarray):
+    """What a page is drawn on: the caller's PIL image, else its array."""
+    return image if hasattr(image, "convert") else image_array
 
 
 def _attach(word, result) -> None:
@@ -166,14 +176,13 @@ class Pipeline:
                         word_images.append(region)
 
     def predict(self, image, recognize_text: bool = True, vis: bool = False, profile: bool = False):
-        """One page (a path, an RGB uint8 array or a PIL image) → Page."""
-        if vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
+        """One page (a path, an RGB uint8 array or a PIL image) → Page, or
+        (Page, PIL image) with ``vis``."""
         if self._fused is not None and recognize_text:
-            page = self._fused.predict(image)
+            result = self._fused.predict(image, vis=vis)
             if profile:
                 print(f"Fused stages: {self._fused.last_timings}")
-            return page
+            return result
 
         start = time.perf_counter()
         page = _page_of(self.detector.predict(image, vis=False, profile=profile))
@@ -182,11 +191,14 @@ class Pipeline:
         if profile:
             print(f"Detection: {time.perf_counter() - start:.3f}s")
         if not recognize_text:
+            if vis:
+                return page, visualize_page(_vis_source(image, read_image(image)), page, show_order=False)
             return page
 
         t0 = time.perf_counter()
+        image_array = read_image(image)
         all_words, word_images = [], []
-        self._crops(read_image(image), page, all_words, word_images)
+        self._crops(image_array, page, all_words, word_images)
         if profile:
             print(f"Extract {len(word_images)} crops: {time.perf_counter() - t0:.3f}s")
         if word_images:
@@ -197,6 +209,8 @@ class Pipeline:
                 print(f"Recognition: {time.perf_counter() - t0:.3f}s")
         if profile:
             print(f"Pipeline total: {time.perf_counter() - start:.3f}s")
+        if vis:
+            return page, visualize_page(_vis_source(image, image_array), page, show_order=True)
         return page
 
     def process_batch(
@@ -211,16 +225,16 @@ class Pipeline:
         pass through ``FusedOCR.predict_many``. Classic: the detector's
         ``predict_batch`` (``detector_batch_size`` pages per device pass)
         when it has one, else ``predict`` page by page; then every page's
-        crops in one recognizer call."""
-        if vis:
-            raise NotImplementedError(VIS_NOT_PORTED)
+        crops in one recognizer call. With ``vis`` each page comes as a
+        (Page, PIL image) pair."""
         if self._fused is not None and recognize_text:
-            pages = self._fused.predict_many(images)
+            pages = self._fused.predict_many(images, vis=vis)
             if profile:
                 print(f"Fused stages per chunk: {self._fused.chunk_timings}")
             return pages
         if not hasattr(self.detector, "predict_batch"):
-            return [self.predict(img, recognize_text=recognize_text, profile=profile) for img in images]
+            return [self.predict(img, recognize_text=recognize_text, vis=vis, profile=profile)
+                    for img in images]
 
         t_start = time.perf_counter()
         arrays = [read_image(im) for im in images]
@@ -240,6 +254,8 @@ class Pipeline:
                     _attach(word, result)
             if profile:
                 print(f"Batch recognition ({len(word_images)} crops): {time.perf_counter() - t0:.3f}s")
+        if vis:
+            return [(page, visualize_page(arr, page, show_order=True)) for arr, page in zip(arrays, pages)]
         return pages
 
     def start_batch(self, images: List) -> Any:

@@ -3,7 +3,8 @@
 The port's own copy of what inference and training use from
 ``manuscript_tpu/recognizers/charset.py``: the special tokens, the default
 194-token charset (index-compatible with the released weights),
-``load_charset``, ``pack_targets`` and ``decode_tokens``.
+``load_charset``/``save_charset``, ``charset_maps``, ``pack_targets`` and
+``decode_tokens``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,17 @@ def load_charset(charset_path: Union[str, Path]) -> Tuple[List[str], Dict[str, i
             if tok:
                 itos.append(tok)
     return itos, {s: i for i, s in enumerate(itos)}
+
+
+def save_charset(itos: Sequence[str], charset_path: Union[str, Path]) -> None:
+    """Write a charset file, one token a line."""
+    with open(charset_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(itos) + "\n")
+
+
+def charset_maps(itos: Sequence[str]) -> Dict[str, int]:
+    """itos → stoi."""
+    return {s: i for i, s in enumerate(itos)}
 
 
 def pack_targets(

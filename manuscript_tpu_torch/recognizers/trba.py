@@ -1,10 +1,15 @@
 """TRBA recognizer wrapper (counterpart of ``manuscript_tpu/recognizers/trba.py``).
 
-Weights: a flax ``.msgpack`` checkpoint read with the port's own reader,
-given as ``model_path`` (or its alias ``weights_path``) or found in
-``~/.manuscript_tpu/trba``; else, when ``allow_random_init`` (by default
-``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``) allows it, weights from a seeded
-generator. Nothing is ever downloaded. The model config (max_len,
+Weights, in this order: ``model_path`` (or its alias ``weights_path``);
+the first ``.msgpack``, else ``.pth``, under ``~/.manuscript_tpu/trba``
+(``MANUSCRIPT_TPU_CACHE``); the reference's released ``.pth`` and its
+``config.json``, fetched into that cache on first use
+(``utils/weights.fetch_artifact``; ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` turns the
+fetch off). A flax ``.msgpack`` is read with the port's own reader, a
+``.pth`` converted (``utils/convert.py``). With none of these, weights from
+a seeded generator only when ``allow_random_init`` (by default
+``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1``) allows them; else the constructor
+raises. The model config (max_len,
 hidden_size, img_h, img_w, cnn_stage_plan) comes from ``config_path``, else
 from a sidecar ``<checkpoint>.json`` or ``config.json`` beside the
 checkpoint, else from the checkpoint itself; the charset from
@@ -27,8 +32,10 @@ from ..models.trba import TRBAModel
 from ..ops.image import read_image, resize_and_pad, to_rgb_u8
 from ..utils.device import resolve_device
 from ..utils.weights import (
+    MissingWeightsError,
     allow_random_init_default,
     cached_checkpoint,
+    fetch_artifact,
     init_random_,
     msgpack_restore,
     msgpack_serialize,
@@ -99,20 +106,28 @@ class TRBA:
             raise FileNotFoundError(f"Model checkpoint not found: {model_path}")
         if model_path is None:
             model_path = cached_checkpoint("trba")
+        if model_path is None:
+            model_path = fetch_artifact("trba")
+            if model_path is not None and config_path is None:
+                config_path = fetch_artifact("trba_config")
         if allow_random_init is None:
             allow_random_init = allow_random_init_default()
         if model_path is None and not allow_random_init:
-            raise ValueError(
-                "TRBA found no checkpoint (none given, none in ~/.manuscript_tpu/trba): "
-                "pass model_path=, or allow_random_init=True (or set "
-                "MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) for untrained weights"
+            raise MissingWeightsError(
+                "TRBA found no checkpoint (none given, none in ~/.manuscript_tpu/trba, "
+                "and the release could not be fetched): pass model_path=, or "
+                "allow_random_init=True (or set MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1) "
+                "for untrained weights"
             )
         if config_path is None and model_path is not None:
             config_path = _config_beside(model_path)
         if config_path is not None and not os.path.exists(config_path):
             raise FileNotFoundError(f"Config file not found: {config_path}")
 
-        raw: Dict[str, Any] = msgpack_restore(Path(model_path)) if model_path is not None else {}
+        is_pth = model_path is not None and str(model_path).endswith(".pth")
+        raw: Dict[str, Any] = (
+            msgpack_restore(Path(model_path)) if model_path is not None and not is_pth else {}
+        )
         if config_path is not None:
             config = json.loads(Path(config_path).read_text(encoding="utf-8"))
         else:
@@ -144,7 +159,14 @@ class TRBA:
             len(self.itos), self.hidden_size, self.sos_id, self.eos_id,
             self.blank_id, self.cnn_stage_plan,
         )
-        if raw:
+        if is_pth:
+            from ..utils.convert import convert_trba, load_torch_state_dict, merge_converted
+
+            state = load_torch_state_dict(str(model_path))
+            self.model.load_state_dict(
+                merge_converted(self.model.state_dict(), convert_trba(state))
+            )
+        elif raw:
             self.model.load_state_dict(params_from_jax(raw))
         else:
             init_random_(self.model, seed)

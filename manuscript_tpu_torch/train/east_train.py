@@ -33,10 +33,11 @@ frozen parameters get no update (optax's ``masked`` passes their raw
 gradients through, and the JAX trainer adds them to the weights); the
 optimizer state of ``last_state.msgpack`` has the port's layout, so a JAX
 state file resumes its weights, EMA and counters and keeps a fresh optimizer
-state (``EASTTrainState.load``); TensorBoard gets the scalars but not the
-validation collage, which needs ``utils/visualize.py`` (ROADMAP.md §1 item
-8). ``device=None`` is the card; ``n_devices`` or ``mesh`` asking for more
-than one device raises.
+state (``EASTTrainState.load``). TensorBoard gets the scalars and, each
+validation, the collage of ``utils/visualize.create_collage`` for sample 0
+of the first validation batch (the EMA weights' prediction when
+``use_ema``). ``device=None`` is the card; ``n_devices`` or ``mesh`` asking
+for more than one device raises.
 """
 
 from __future__ import annotations
@@ -254,12 +255,13 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
 
 
 def eval_step(model: EASTModel, image, score, geo):
-    """(loss, soft dice) of a validation batch in eval mode."""
+    """(loss, soft dice, predicted score (B, h, w), predicted geometry
+    (B, h, w, 8)) of a validation batch in eval mode."""
     model.eval()
     out = model(normalize(image))
     pred_score = out["score"][..., 0]
     return (east_loss(score, pred_score, geo, out["geometry"]),
-            soft_dice_coefficient(score, pred_score))
+            soft_dice_coefficient(score, pred_score), pred_score, out["geometry"])
 
 
 @contextmanager
@@ -279,6 +281,22 @@ def _ema_weights(model: EASTModel, ema: Optional[Dict[str, torch.Tensor]]):
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(saved[k])
+
+
+def _val_collage(dataset, raw, pred_score: torch.Tensor, pred_geo: torch.Tensor) -> np.ndarray:
+    """The collage of sample 0 of a validation batch: from the host batch
+    ``raw``, or (device-resident validation, ``raw`` None) the dataset's
+    item 0, which is that sample."""
+    from ..utils.visualize import create_collage
+
+    if raw is None:
+        im0, sc0, geo0, quads0 = dataset[0]
+    else:
+        im0, sc0, geo0 = raw["image"][0], raw["score"][0], raw["geo"][0]
+        quads0 = raw.get("quads", [None])[0]
+    return create_collage(im0, sc0, geo0, gt_quads=quads0,
+                          pred_score=pred_score.float().cpu().numpy(),
+                          pred_geo=pred_geo.float().cpu().numpy())
 
 
 def _resolve_resume_path(resume_from: Union[str, Path]) -> Optional[Path]:
@@ -427,20 +445,25 @@ def train(
 
         if (epoch + 1) % val_interval == 0 and val_sets:
             val_losses, val_dices = [], []
+            collage_logged = False
             with torch.no_grad(), _ema_weights(model, state.ema):
                 for vi, vs in enumerate(val_sets):
                     if dev_vals is not None:
                         dv = dev_vals[vi]
-                        batches = (dv.batch(np.arange(b, min(b + batch_size, len(dv))))
+                        batches = ((dv.batch(np.arange(b, min(b + batch_size, len(dv)))), None)
                                    for b in range(0, len(dv), batch_size))
                     else:
-                        batches = (host_batch(b) for b in batch_iterator(
-                            vs, batch_size, shuffle=False, drop_last=False))
+                        batches = ((host_batch(b), b) for b in batch_iterator(
+                            vs, batch_size, shuffle=False, drop_last=False, include_quads=True))
                     vl, vd = [], []
-                    for img_b, sc_b, geo_b in batches:
-                        loss, dice = eval_step(model, img_b, sc_b, geo_b)
+                    for (img_b, sc_b, geo_b), raw in batches:
+                        loss, dice, pred_score, pred_geo = eval_step(model, img_b, sc_b, geo_b)
                         vl.append(float(loss))
                         vd.append(float(dice))
+                        if writer is not None and not collage_logged:
+                            collage_logged = True
+                            writer.add_image("val/collage", _val_collage(
+                                vs, raw, pred_score[0], pred_geo[0]), epoch, dataformats="HWC")
                     val_losses.append(float(np.mean(vl)) if vl else 0.0)
                     val_dices.append(float(np.mean(vd)) if vd else 0.0)
                     log[f"val_loss/{vs.dataset_name}"] = val_losses[-1]

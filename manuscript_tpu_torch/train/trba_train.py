@@ -387,9 +387,13 @@ def train(
     init_random_(model, cfg.seed)
     if cfg.pretrained_path:
         try:
-            if not str(cfg.pretrained_path).endswith(".msgpack"):
-                raise ValueError("only flax .msgpack checkpoints are read (.pth: ROADMAP.md §1 item 8)")
-            model.load_state_dict(params_from_jax(msgpack_restore(Path(cfg.pretrained_path))))
+            if str(cfg.pretrained_path).endswith(".pth"):  # the reference's layout
+                from ..utils.convert import convert_trba, load_torch_state_dict, merge_converted
+
+                state = load_torch_state_dict(cfg.pretrained_path)
+                model.load_state_dict(merge_converted(model.state_dict(), convert_trba(state)))
+            else:
+                model.load_state_dict(params_from_jax(msgpack_restore(Path(cfg.pretrained_path))))
             log(f"loaded pretrained weights from {cfg.pretrained_path}")
         except Exception as e:  # tolerant load: warn and keep the random init
             log(f"pretrained load failed ({e}); continuing with random init")

@@ -20,15 +20,36 @@ torch conversion, and seeded random init.
 * ``init_random_`` fills a model from a seeded ``torch.Generator`` (LeCun
   normal kernels, zero biases, identity BatchNorm) — the full-width models
   have no trained weights in the repository.
-* ``cached_checkpoint`` finds a ``.msgpack`` checkpoint in the user's cache
-  (``~/.manuscript_tpu/<name>``), and ``allow_random_init_default`` reads
-  ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT``; nothing is ever downloaded.
+* ``cached_checkpoint`` finds a checkpoint in the user's cache
+  (``cache_root()/<name>``: a ``.msgpack``, else a reference ``.pth``), and
+  ``allow_random_init_default`` reads ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT``.
+* The first-use fetch of the reference's released checkpoints
+  (``RELEASES``): ``fetch_artifact`` returns the cached file, or downloads it
+  with ``urllib`` into the cache (``download_file``: a unique ``.part`` file
+  per process, the pinned sha256 checked, then an atomic rename, so that a
+  failed or tampered download leaves no file where the cache scan looks).
+  A failed fetch warns and returns None; the wrappers then raise unless
+  random weights are allowed. The released files are torch ``.pth`` state
+  dicts, converted on load by ``utils/convert.py``.
+
+Environment:
+
+* ``MANUSCRIPT_TPU_CACHE``: the cache root (default ``~/.manuscript_tpu``).
+* ``MANUSCRIPT_TPU_NO_DOWNLOAD=1``: never fetch; the cache only (a machine
+  without a network sets it to skip the connect timeout).
+* ``MANUSCRIPT_TPU_<NAME>_URL`` (``EAST``, ``TRBA``, ``TRBA_CONFIG``): another
+  URL for a release file, e.g. a mirror or a ``file://`` path.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
+import shutil
 import struct
+import warnings
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -294,7 +315,8 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
 def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in place: LeCun-normal convs, linears and flax-named
     ``*kernel*`` parameters (std 1/√fan_in), zero biases, BatchNorm as the
-    identity."""
+    identity, and a module's ``identity_init_`` where it has one (the TPS's
+    last localization layer, as flax initialises it)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for name, t in sorted(model.state_dict().items()):
         leaf = name.rsplit(".", 1)[-1]
@@ -309,15 +331,23 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
                 fan_in = t.shape[0]
             val = torch.randn(t.shape, generator=gen) / np.sqrt(fan_in)
         t.copy_(val.to(t.dtype))
+    for m in model.modules():  # layers initialised to an identity (the TPS's last)
+        if hasattr(m, "identity_init_"):
+            m.identity_init_()
     return model
 
 
 def cached_checkpoint(name: str) -> Optional[Path]:
-    """The first ``*.msgpack`` (sorted, subfolders included) under
-    ``~/.manuscript_tpu/<name>``, or None."""
-    cache = Path.home() / ".manuscript_tpu" / name
-    hits = sorted(cache.glob("**/*.msgpack")) if cache.exists() else []
-    return hits[0] if hits else None
+    """The first ``*.msgpack`` under ``cache_root()/<name>`` (sorted,
+    subfolders included), else the first ``*.pth``, or None."""
+    cache = cache_root() / name
+    if not cache.exists():
+        return None
+    for pattern in ("**/*.msgpack", "**/*.pth"):
+        hits = sorted(cache.glob(pattern))
+        if hits:
+            return hits[0]
+    return None
 
 
 def allow_random_init_default() -> bool:
@@ -326,3 +356,124 @@ def allow_random_init_default() -> bool:
     MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1, so that a user gets an error rather
     than plausible-looking garbage."""
     return os.environ.get("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT") == "1"
+
+
+# ---- the first-use fetch of the reference's released checkpoints ---------------
+
+
+@dataclass(frozen=True)
+class ReleaseArtifact:
+    name: str
+    url: str
+    subdir: str
+    filename: str
+    sha256: Optional[str] = None  # None: no digest pinned here
+
+
+_RELEASE_BASE = "https://github.com/konstantinkozhin/manuscript-ocr/releases/download/v0.1.0/"
+RELEASES = {
+    "east": ReleaseArtifact("east", _RELEASE_BASE + "east_quad_23_05.pth", "east",
+                            "east_quad_23_05.pth"),
+    "trba": ReleaseArtifact("trba", _RELEASE_BASE + "trba_exp_1_64.pth",
+                            "trba/exp_1_baseline", "weights.pth"),
+    "trba_config": ReleaseArtifact("trba_config", _RELEASE_BASE + "trba_exp_1_64.json",
+                                   "trba/exp_1_baseline", "config.json"),
+}
+
+PINNED_HASHES_FILE = Path(__file__).resolve().parent.parent / "configs" / "release_hashes.json"
+
+
+def cache_root() -> Path:
+    """``MANUSCRIPT_TPU_CACHE``, else ``~/.manuscript_tpu``."""
+    return Path(os.environ.get("MANUSCRIPT_TPU_CACHE", Path.home() / ".manuscript_tpu")).expanduser()
+
+
+def _sha256_of(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def download_file(url: str, destination: Path, sha256: Optional[str] = None,
+                  timeout: float = 30.0) -> Path:
+    """Fetch ``url`` to ``destination`` through a ``.part`` file unique to
+    this process and call, checking its sha256 when one is given, then
+    renaming it into place. Raises on a failed fetch or a wrong digest, and
+    never leaves a partial file behind."""
+    import urllib.request
+    import uuid
+
+    destination.parent.mkdir(parents=True, exist_ok=True)
+    tmp = destination.with_suffix(
+        destination.suffix + f".{os.getpid()}.{uuid.uuid4().hex[:8]}.part"
+    )
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp, open(tmp, "wb") as out:
+            shutil.copyfileobj(resp, out)
+        if sha256 is not None:
+            got = _sha256_of(tmp)
+            if got != sha256:
+                raise RuntimeError(f"sha256 mismatch for {url}: expected {sha256}, got {got}")
+        os.replace(tmp, destination)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return destination
+
+
+def _pinned() -> Dict[str, str]:
+    try:
+        return json.loads(PINNED_HASHES_FILE.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def pinned_sha256(name: str) -> Optional[str]:
+    """The release sha256 of ``name``: the ``RELEASES`` entry's, else the one
+    recorded in ``configs/release_hashes.json`` (by ``pin_sha256``), else
+    None."""
+    return RELEASES[name].sha256 or _pinned().get(name)
+
+
+def pin_sha256(name: str, digest: str) -> None:
+    """Record a verified release digest in ``configs/release_hashes.json``."""
+    pinned = _pinned()
+    pinned[name] = digest
+    PINNED_HASHES_FILE.write_text(json.dumps(pinned, indent=1) + "\n")
+
+
+def fetch_artifact(name: str, cache_dir: Optional[Path] = None, quiet: bool = False) -> Optional[Path]:
+    """A local path for release file ``name``: the cached copy (which must
+    match a pinned sha256), else a download into the cache. None when the
+    file is not cached and ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` or the download
+    fails (with a warning): the caller decides whether that is fatal."""
+    art = RELEASES[name]
+    dest = (cache_dir or cache_root()) / art.subdir / art.filename
+    sha = pinned_sha256(name)
+    if dest.exists():
+        if sha is not None:
+            got = _sha256_of(dest)
+            if got != sha:
+                raise RuntimeError(
+                    f"cached {art.name} at {dest} fails its pinned sha256 "
+                    f"(expected {sha}, got {got}) — delete it and re-fetch"
+                )
+        return dest
+    if os.environ.get("MANUSCRIPT_TPU_NO_DOWNLOAD") == "1":
+        return None
+    url = os.environ.get(f"MANUSCRIPT_TPU_{art.name.upper()}_URL", art.url)
+    if not quiet:
+        print(f"Downloading {art.name} from {url} -> {dest}")
+    try:
+        return download_file(url, dest, sha256=sha)
+    except Exception as exc:  # a failed fetch or a wrong digest: no weights
+        warnings.warn(f"Could not fetch {art.name} from {url}: {exc}")
+        return None
+
+
+class MissingWeightsError(ValueError, RuntimeError):
+    """No checkpoint given, cached or fetched, and random weights not allowed
+    (a ValueError, as the port raised before it fetched, and a RuntimeError,
+    as the JAX package raises)."""

@@ -189,8 +189,10 @@ def test_reading_order_and_decode_settings(image):
     page = pipe.predict(image)
     assert [w.polygon[0][1] for w in page.blocks[0].words] == [10, 60]
     assert rec.seen == dict(mode="greedy", beam_size=3, alpha=0.9, temperature=1.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.predict(image, vis=True)
+    # vis=True: (page, drawn page), the page's size, the words in reading order
+    page, vis = pipe.predict(image, vis=True)
+    assert [w.polygon[0][1] for w in page.blocks[0].words] == [10, 60]
+    assert vis.size == (image.shape[1], image.shape[0])
 
 
 # ---- TRBA.predict ---------------------------------------------------------------

@@ -115,6 +115,39 @@ def test_process_batch_on_the_card(cuda):
             np.testing.assert_allclose(a.polygon, b.polygon, atol=1e-2, rtol=0)
 
 
+def test_tps_beam_on_the_card_equals_the_cpu(cuda):
+    """``TRBAModel(use_tps=True)`` with the micro checkpoint's weights and a
+    warping TPS from a seed: the beam tokens on the card (K1 in every step)
+    equal the CPU's, the logits within 1e-3, TF32 off."""
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.recognizers import TRBA
+    from manuscript_tpu_torch.utils.quality import QUALITY_DIR
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = TRBA(QUALITY_DIR / "trba_micro.msgpack", device="cpu")
+    model = TRBAModel(len(rec.itos), rec.hidden_size, rec.sos_id, rec.eos_id, rec.blank_id,
+                      rec.cnn_stage_plan, use_tps=True)
+    init_random_(model, 0)
+    model.load_state_dict(rec.model.state_dict(), strict=False)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        dense = model.tps.localization.Dense_1
+        dense.weight.copy_(torch.randn(dense.weight.shape, generator=gen) * 0.02)
+    model.eval()
+    x = torch.rand((16, rec.img_h, rec.img_w, 3), generator=gen) * 2 - 1
+    with torch.no_grad():
+        ref_logits, ref = model.beam(x, max_len=rec.max_length, beam_size=4)
+        gpu = model.to(cuda)
+        before = k1.launches
+        logits, got = gpu.beam(x.to(cuda), max_len=rec.max_length, beam_size=4)
+        torch.cuda.synchronize()
+    assert k1.launches - before == rec.max_length
+    assert torch.equal(got.cpu(), ref)
+    torch.testing.assert_close(logits.cpu(), ref_logits, atol=1e-3, rtol=0)
+
+
 def test_quad_iou_kernels_match_plain(cuda):
     rng = np.random.default_rng(0)
     q1 = torch.from_numpy(rng.uniform(0, 50, (3000, 4, 2)).astype(np.float32)).to(cuda)

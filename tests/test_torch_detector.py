@@ -117,8 +117,8 @@ def test_detector_refusals(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         EAST(tmp_path / "missing.msgpack", device="cpu")
     det = EAST(device="cpu", target_size=64, backbone="resnet50-micro", allow_random_init=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        det.predict(np.zeros((32, 32, 3), np.uint8), vis=True)
+    # vis=True: the result carries the drawn page, at the page's size
+    assert det.predict(np.zeros((32, 48, 3), np.uint8), vis=True)["vis_image"].size == (48, 32)
     with pytest.raises(FileNotFoundError):
         det.predict(str(tmp_path / "missing.png"))
     with pytest.raises(TypeError):
