@@ -102,7 +102,24 @@ run with a traceback and a non-zero exit:
    encode seconds beside the plain model's and its peak memory (a row may
    read otherwise only as a near-tie, confidence within 1e-4), and a micro
    ``use_tps=True`` model on the card against the CPU; and
-   ``create_collage`` on the card's maps of one page.
+   ``create_collage`` on the card's maps of one page;
+12. the measuring tools: ``utils.profiling.trace``/``annotate``/
+   ``device_split`` over 3 full-width TRBA training steps (phase 10's
+   configuration, batch 64: forward, backward, optimizer), 2 EAST ASAM
+   steps at the trainer's defaults (first pass, second pass, update) and one
+   ``process_batch`` of 4 full-width pages (phase A, phase B and its device
+   launches), each with its top 10 kernels; ``python -m manuscript_tpu_torch
+   bench`` at full size as a subprocess (every line finite and naming the
+   card, the primary first, every MFU in (0, 1.05], the micro checkpoints'
+   quality lines equal to ``configs/quality_reference.json`` within phase
+   7's tolerances) and its ``--perf-gate``; the serving bench with ``.npy``
+   and PNG bodies (8 clients, 10 s each, no failed request); a decode sweep
+   (``utils.sweep.Study``, sqlite, 8 trials over mode, beam size, alpha and
+   temperature) on the micro TRBA and 64 rendered crops, K1's steps counted
+   around each trial, and ``sweep-report`` naming its best trial; and the
+   kernel cache: one process builds every source into
+   ``MANUSCRIPT_TPU_KERNEL_CACHE``, a second with no compiler on PATH
+   builds nothing and loads them.
 
 The script sets ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` for itself and its
 subprocesses (phase 11 lifts it while it fetches from ``file://``): a
@@ -1563,6 +1580,253 @@ def reference_weights_tps_vis(torch, rng, k1, k2) -> dict:
     return {"Pipeline.predict(vis=True), 3 pages": vis_steps, "TRBAModel(use_tps=True).beam": tps_steps}
 
 
+def subprocess_lines(args, timeout: float, env=None) -> str:
+    """Run ``python args`` from the checkout's root; its output printed; a
+    non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    print(f"$ python {' '.join(args)}  ({time.perf_counter() - t0:.1f} s, exit {out.returncode})")
+    print(out.stdout.rstrip())
+    check(out.returncode == 0, out.stderr[-4000:])
+    return out.stdout
+
+
+def print_split(what: str, split: dict, regions, per: int, outer: bool = False) -> None:
+    """A ``device_split``: each region's device ms and launches per
+    occurrence, the device work outside the regions (outside the first,
+    when ``outer``: it holds the others), the window's busy share, and the
+    top 10 kernels.
+    Autograd runs the backward pass on a thread of its own, so a region on
+    the calling thread holds the backward's launch, not its kernels: they
+    are in the rest."""
+    print(f"{what}: trace window {split['window_ms']:.3f} ms, device {split['device_ms']:.3f} ms "
+          f"(busy share {split['busy']:.4f}), {split['launches']} device launches; per time:")
+    for name in regions:
+        r = split["regions"].get(name)
+        check(r is not None and r["count"] == per and r["launches"] > 0, (name, r))
+        print(f"   {name}: {r['device_ms'] / per:.3f} device ms, {r['launches'] / per:.0f} launches")
+    top = regions[:1] if outer else regions
+    inside = [split["regions"][n] for n in top]
+    print(f"   outside {', '.join(top)}: {(split['device_ms'] - sum(r['device_ms'] for r in inside)) / per:.3f} "
+          f"device ms, {(split['launches'] - sum(r['launches'] for r in inside)) / per:.0f} launches")
+    for name, (n, ms) in list(split["kernels"].items())[:10]:
+        print(f"   {ms:10.3f} ms {n:6d}×  {name[:110]}")
+
+
+def profiler_split(torch, k1, det, rec, rng) -> None:
+    """Phase 12, first part: ``utils.profiling.trace``/``annotate``/
+    ``device_split`` over 3 full-width TRBA training steps (phase 10's
+    configuration, batch 64), 2 EAST ASAM steps at the trainer's defaults
+    and one ``process_batch`` of 4 full-width pages (its phase-B pass)."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.recognizers.charset import default_charset, pack_targets
+    from manuscript_tpu_torch.train import east_train, optim, trba_train
+    from manuscript_tpu_torch.utils.profiling import annotate, device_split, trace
+    from manuscript_tpu_torch.utils.synthetic import VOCAB
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    logdir = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        itos = default_charset()
+        stoi = {c: i for i, c in enumerate(itos)}
+        model = init_random_(TRBAModel(len(itos), 256, stoi["<SOS>"], stoi["<EOS>"],
+                                       stoi.get("<BLANK>")), 0).cuda()
+        params = dict(model.named_parameters())
+        tx = optim.build_trba_optimizer("adam", 1e-3, 0.0, 5.0)
+        state = [tx.init(params)]
+        words = [str(VOCAB[int(i)]) for i in rng.integers(len(VOCAB), size=64)]
+        text_in, target_y, _ = pack_targets(words, stoi, 25)
+        batch = {"image": torch.from_numpy(rng.integers(0, 256, (64, 64, 256, 3), dtype=np.uint8)),
+                 "text_in": torch.from_numpy(text_in), "target_y": torch.from_numpy(target_y)}
+        batch = {k: v.cuda() for k, v in batch.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def trba_steps(n):
+            for _ in range(n):
+                _, state[0] = trba_train.train_step(model, tx, state[0], params, batch,
+                                                    stoi["<PAD>"], generator=gen)
+
+        trba_steps(1)  # warm
+        with trace(logdir) as prof:
+            trba_steps(3)
+        print_split("3 TRBA training steps (full width, batch 64, Adam, dropout on)",
+                    device_split(prof), ("trba.forward", "trba.backward", "trba.optimizer"), 3)
+        del model, params, state, batch
+
+        east = init_random_(EASTModel("resnet101"), 0).cuda()
+        mask = east_train.freeze_mask(east, True)
+        trainable = {k: p for k, p in east.named_parameters() if mask[k]}
+        etx, _ = optim.build_east_optimizer(1e-3, steps_per_epoch=2, use_sam=True)
+        est = east_train.EASTTrainState(east, etx.init(trainable), None)
+        image = torch.from_numpy(rng.integers(0, 256, (3, 1024, 1024, 3), dtype=np.uint8)).cuda()
+        score = (torch.rand(3, 256, 256, device="cuda") > 0.9).float()
+        geo = torch.randn(3, 256, 256, 8, device="cuda") * 10
+
+        def east_steps(n):
+            for _ in range(n):
+                east_train.train_step(est, etx, trainable, image, score, geo)
+
+        east_steps(1)  # warm
+        with trace(logdir) as prof:
+            east_steps(2)
+        print_split("2 EAST ASAM steps (resnet101, 1024², batch 3, SGD, OHEM, focal, "
+                    "freeze_first)", device_split(prof),
+                    ("sam.first_pass", "sam.second_pass", "east.update"), 2)
+        del east, trainable, est, image
+        torch.cuda.empty_cache()
+
+        pipe = Pipeline(det, rec, beam_size=8, batch_pages=4)
+        pages = [synthetic_page(rng) for _ in range(4)]
+        pipe.process_batch(pages)  # warm
+        k1.launches = 0
+        with trace(logdir) as prof:
+            with annotate("process_batch"):
+                pipe.process_batch(pages)
+        split = device_split(prof)
+        print_split("process_batch, 4 full-width pages (one chunk)", split,
+                    ("process_batch", "fused.phase_a", "fused.phase_b"), 1, outer=True)
+        check(k1.launches == rec.max_length, k1.launches)
+        print(f"   phase B's pass: {split['regions']['fused.phase_b']['launches']} device launches "
+              f"for {rec.max_length} K1 steps at {pipe._fused.chunk_timings[0]['slots']} slots a "
+              f"page (PERF.md §3 guessed ~3000 eager ops)")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+def bench_on_card(smi: str) -> None:
+    """Phase 12: ``python -m manuscript_tpu_torch bench`` at full size, then
+    ``--perf-gate``. Every line parses, is finite and names the card; the
+    primary comes first; both MFUs lie in (0, 1.05]; the quality lines
+    (phase 7's pages and settings) equal the JAX package's CPU numbers
+    within phase 7's tolerances."""
+    ref = json.loads((ROOT / "manuscript_tpu_torch" / "configs" / "quality_reference.json").read_text())
+    out = subprocess_lines(["-m", "manuscript_tpu_torch", "bench"], timeout=1200)
+    lines = {}
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            row = json.loads(ln)
+            lines[row["metric"]] = row
+            check(np.isfinite(row["value"]) and row["device"] == smi, row)
+    check(next(iter(lines)) == "e2e_pipeline_pages_per_sec", list(lines))
+    for name in ("fused_program_mfu", "fused_e2e_mfu", "east_train_step_mfu", "trba_train_step_mfu"):
+        check(0.0 < lines[name]["value"] <= 1.05, lines[name])
+    check(round(lines["detector_f1"]["value"], 3) == round(ref["native"]["detector_f1"], 3),
+          lines["detector_f1"])
+    for metric, name in (("e2e_synthetic_cer", "native"), ("e2e_synthetic_cer_devicecrop", "device"),
+                         ("e2e_synthetic_cer_crop_scale2", "crop_scale_2"),
+                         ("e2e_synthetic_cer_hostcrops", "classic")):
+        check(abs(lines[metric]["value"] - ref[name]["e2e_cer"]) <= 0.005, (lines[metric], ref[name]))
+    print(f"bench: {len(lines)} lines, primary first, all finite on {smi}; quality equal to "
+          "configs/quality_reference.json within phase 7's tolerances")
+    gate = subprocess_lines(["-m", "manuscript_tpu_torch.bench", "--perf-gate"], timeout=600)
+    got = json.loads(next(ln for ln in gate.splitlines() if ln.startswith("PERF_GATE "))[10:])
+    check(got["backend"] == "cuda" and got["device"] == smi and 0 < got["program_mfu"] <= 1.05, got)
+
+
+def serve_bench_on_card() -> None:
+    """Phase 12: the serving bench with ``.npy`` and PNG bodies, 8 clients,
+    10 s each."""
+    for codec in ("npy", "png"):
+        out = subprocess_lines(["-m", "manuscript_tpu_torch.serve_bench", "--codec", codec,
+                                "--clients", "8", "--seconds", "10"], timeout=600)
+        rows = {r["metric"]: r for r in map(json.loads, (ln for ln in out.splitlines()
+                                                          if ln.startswith("{")))}
+        check(rows["serve_errors"]["value"] == 0 and rows["serve_pages_per_sec"]["value"] > 0, rows)
+
+
+def decode_sweep(torch, k1, tmp: Path) -> None:
+    """Phase 12: the decode sweep of ``examples/decode_sweep.py`` through K1:
+    a ``Study`` over mode, beam size 2–12, alpha and temperature, sqlite
+    storage, 8 trials on the micro TRBA checkpoint and 64 rendered crops;
+    then ``sweep-report`` on its storage."""
+    from manuscript_tpu_torch import TRBA
+    from manuscript_tpu_torch.train.metrics import compute_accuracy
+    from manuscript_tpu_torch.utils.sweep import Study
+    from manuscript_tpu_torch.utils.synthetic import VOCAB, render_word
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = TRBA(ROOT / "manuscript_tpu" / "configs" / "quality" / "trba_micro.msgpack", device="cuda")
+    rng = np.random.default_rng(12)
+    words = [str(VOCAB[int(i)]) for i in rng.integers(len(VOCAB), size=64)]
+    crops = [render_word(w, rng) for w in words]
+    trials = []
+
+    def objective(params):
+        before = k1.launches
+        kw = {} if params["mode"] == "greedy" else dict(
+            beam_size=params["beam_size"], alpha=params["alpha"], temperature=params["temperature"])
+        got = model.predict(crops, batch_size=32, mode=params["mode"], **kw)
+        acc = compute_accuracy(words, [r["text"] for r in got])
+        trials.append((params, k1.launches - before, acc))
+        return acc
+
+    db = tmp / "decode_sweep.db"
+    study = Study({"mode": ("cat", ["greedy", "beam"]), "beam_size": ("int", 2, 12),
+                   "alpha": ("float", 0.0, 1.0), "temperature": ("float", 0.7, 2.0)},
+                  storage=str(db), direction="maximize")
+    best = study.optimize(objective, 8)
+    for params, steps, acc in trials:
+        print(f"   trial {params}: accuracy {acc:.4f}, K1 steps {steps}")
+        # two batches of 32 crops: max_len beam steps, max_len + 1 greedy
+        check(steps == 2 * (model.max_length + (params["mode"] == "greedy")), (params, steps))
+    check(any(p["mode"] == "beam" for p, _, _ in trials), "no beam trial")
+    html = tmp / "decode_sweep.html"
+    out = subprocess_lines(["-m", "manuscript_tpu_torch", "sweep-report", str(db), "--out", str(html)],
+                           timeout=300)
+    page = html.read_text()
+    check(f"best: value={best['value']:.6g}" in out and f"<td>{best['value']:.6g}</td>" in page
+          and all(f"<td>{v}</td>" in page for v in best["params"].values()), best)
+    print(f"best trial #{best['number']}: {best['params']} → {best['value']:.4f}; the report names it")
+
+
+_CACHE_LOAD = (
+    "import json; from manuscript_tpu_torch.utils.compile_cache import enable_compile_cache;"
+    "from manuscript_tpu_torch.ops import _build; where = enable_compile_cache();"
+    "seconds = _build.build(); libs = [_build.library(n)._name for n in _build.SOURCES];"
+    "print(json.dumps({'cache': where, 'seconds': seconds, 'libs': libs}))"
+)
+
+
+def kernel_cache(tmp: Path) -> None:
+    """Phase 12: every source built into ``MANUSCRIPT_TPU_KERNEL_CACHE`` by
+    one process; a second, with no nvcc and no host compiler to be found,
+    builds nothing and loads the cached libraries."""
+    cache = tmp / "kernel_cache"
+    env = dict(os.environ, MANUSCRIPT_TPU_KERNEL_CACHE=str(cache))
+    first = json.loads(subprocess_lines(["-c", _CACHE_LOAD], timeout=600, env=env))
+    check(first["cache"] == str(cache) and set(first["seconds"]) == {"attention_step", "quad_iou", "lanms"},
+          first)
+    check(all(Path(lib).parent == cache for lib in first["libs"]), first)
+    empty = tmp / "empty"
+    empty.mkdir()
+    second = json.loads(subprocess_lines(["-c", _CACHE_LOAD], timeout=300,
+                                         env=dict(env, PATH=str(empty), CUDA_HOME=str(empty))))
+    check(second["seconds"] == {} and second["libs"] == first["libs"], second)
+    print(f"kernel cache: the first process built {({k: round(v, 2) for k, v in first['seconds'].items()})} "
+          f"s into it; the second, with no compiler on PATH, built {second['seconds']} and loaded "
+          f"all {len(second['libs'])} libraries from it")
+
+
+def measuring_tools(torch, k1, det, rec, rng) -> None:
+    """Phase 12: the profiler split, the bench and its perf gate, the serving
+    bench, the decode sweep through K1, and the kernel cache."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    profiler_split(torch, k1, det, rec, rng)
+    print(f"(profiler part {time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()  # the bench's training steps run in a process of their own
+    bench_on_card(smi)
+    serve_bench_on_card()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        decode_sweep(torch, k1, Path(tmp))
+        kernel_cache(Path(tmp))
+
+
 def main() -> int:
     import torch
 
@@ -1613,13 +1877,10 @@ def main() -> int:
         check(err <= 1e-4, err)
         k1_err = max(k1_err, err)
         n_tok = int(torch.unique(a_[4]).numel())
-        # each input read once: the words' memory, h, c, tok, W_h2h, b_h2h,
-        # w_score, W_ih[:E], the token rows used, W_hh, bias; h', c' written
-        rest = 2 * rows * H + rows + H * H + 2 * H + (E + n_tok + H) * 4 * H + 4 * H + 2 * rows * H
-        nbytes = 4 * (words * T * (E + H) + rest)
-        nbytes_per_row = 4 * (rows * T * (E + H) + rest)  # memory read per beam row
-        flops = rows * (2 * H * H + 3 * T * H + 5 * T + 2 * T * E + 8 * E * H
-                        + 8 * H * H + 16 * H)
+        # the package's count (the bench's MFU uses the same): each input
+        # read once, h' and c' written; memory read per beam row beside it
+        flops, nbytes = k1.step_cost(words, rows, T, H, E, n_tok)
+        nbytes_per_row = k1.step_cost(rows, rows, T, H, E, n_tok)[1]
         k1_rows[rows] = (graph_time_ms(torch, lambda: k1.attention_step_cuda(*a_, beam=K)),
                          graph_time_ms(torch, lambda: k1.attention_step_plain(*a_, beam=K)),
                          *bound(nbytes, flops), bound(nbytes_per_row, flops)[0])
@@ -1677,10 +1938,11 @@ def main() -> int:
         check(err <= 2e-5, err)
         k2_err = max(k2_err, err)
         live = pairs if n_live is None else int(n_live.sum())
-        nbytes = qs.numel() * 4 + pairs * (4 + 4 + 4) + (0 if n_live is None else 4 * n_live.numel())
+        flops, nbytes = k2.gather_cost(qs.shape[0], pairs, live,
+                                       0 if n_live is None else n_live.numel())
         k2_rows[name] = (graph_time_ms(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
                          graph_time_ms(torch, lambda: k2.quad_iou_gather_plain(qs, ia, ib, n_live)),
-                         *bound(nbytes, live * 860), graph_time_ms(torch, copy_form))
+                         *bound(nbytes, flops), graph_time_ms(torch, copy_form))
         k2_ops[name] = (device_ops(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
                         device_ops(torch, copy_form))
         print(f"K2 quad_iou_gather {name}: P={pairs} pairs of {qs.shape[0]} quads, {live} live: "
@@ -1697,7 +1959,7 @@ def main() -> int:
     check(k2m_err <= 2e-5, k2m_err)
     k2m = (graph_time_ms(torch, lambda: k2.quad_iou_matrix_cuda(a, b)),
            graph_time_ms(torch, lambda: k2.quad_iou_matrix_plain(a, b), calls=2, replays=3),
-           *bound(2048 * 32 + 1024 * 1024 * 4, 1024 * 1024 * 860))
+           *bound(k2.matrix_cost(1024, 1024)[1], k2.matrix_cost(1024, 1024)[0]))
     print(f"K2 quad_iou_matrix 1024x1024: max|d| = {k2m_err:.3e}; "
           "ms {:.4f} plain_ms {:.4f} bound_ms {:.4f} ({})".format(*k2m))
 
@@ -1820,6 +2082,11 @@ def main() -> int:
     phase("11 reference weights, TPS, vis")
     print(smi)
     ref_launches = reference_weights_tps_vis(torch, rng, k1, k2)
+
+    # ---- 12. measuring tools ---------------------------------------------------------------
+    phase("12 measuring tools: profiler, bench, perf gate, serving bench, decode sweep, kernel cache")
+    print(smi)
+    measuring_tools(torch, k1, det, rec, rng)
 
     # ---- result ---------------------------------------------------------------
     phase("result")

@@ -5,11 +5,16 @@ on the card:
     python -m manuscript_tpu_torch detect page.jpg [--thresh 0.6] [--out boxes.json] [--vis boxes.png]
     python -m manuscript_tpu_torch recognize crop1.png crop2.png [--mode greedy]
     python -m manuscript_tpu_torch serve [--port 8000]
+    python -m manuscript_tpu_torch bench
+    python -m manuscript_tpu_torch sweep-report study.db [--out report.html]
 
 Weights come from ``--weights``, else ``~/.manuscript_tpu/{east,trba}``, else
 the reference's release fetched there on first use; with none of these,
 ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT=1`` allows untrained ones. ``--vis``
 writes the page drawn with its words (PIL; the format from the file name).
+``bench`` runs ``manuscript_tpu_torch/bench.py`` (``MANUSCRIPT_TPU_BENCH_SMOKE=1``
+runs it on the CPU at tiny shapes). ``MANUSCRIPT_TPU_KERNEL_CACHE`` names a
+persistent directory for the built kernels (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -102,6 +107,18 @@ def cmd_recognize(args):
         print(f"{path}\t{r['text']}\t{r['confidence']:.4f}")
 
 
+def cmd_bench(args):
+    from . import bench
+
+    bench.main()
+
+
+def cmd_sweep_report(args):
+    from .utils.sweep import sweep_report
+
+    print(sweep_report(args.storage, out_html=args.out))
+
+
 def cmd_serve(args):
     from . import Pipeline
     from .serve import OCRServer
@@ -123,6 +140,12 @@ def cmd_serve(args):
 
 
 def main(argv=None):
+    # a host that sets MANUSCRIPT_TPU_KERNEL_CACHE starts every entry point
+    # with the kernels it built before
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(None)
+
     parser = argparse.ArgumentParser(prog="manuscript_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -163,6 +186,18 @@ def main(argv=None):
     p.add_argument("--beam-size", type=int, default=8)
     p.add_argument("--batch-size", type=int, default=32)
     p.set_defaults(func=cmd_recognize)
+
+    p = sub.add_parser("bench", help="run the standard benchmark on the card")
+    p.set_defaults(func=cmd_bench)
+
+    p = sub.add_parser(
+        "sweep-report",
+        help="summarize a hyperparameter study (utils.sweep storage) and optionally render "
+             "a self-contained HTML report",
+    )
+    p.add_argument("storage", help=".json or .db/.sqlite study storage")
+    p.add_argument("--out", help="write an HTML report here")
+    p.set_defaults(func=cmd_sweep_report)
 
     p = sub.add_parser("serve", help="HTTP OCR server with micro-batching")
     p.add_argument("--host", default="0.0.0.0")

@@ -32,7 +32,9 @@ main thread (its kernels enqueued on the current CUDA stream, then a copy of
 the results into pinned host memory and an event) and a fetch in a stage
 thread (the event's wait), so the host's prep, crops and page builds run
 beside the card's work. Short chunks are not padded to ``batch_pages``:
-nothing here is compiled for a fixed batch.
+nothing here is compiled for a fixed batch. Each launch is a profiler and
+NVTX region (``utils/profiling.annotate``): ``fused.phase_a``,
+``fused.phase_b`` and, on the device-crop path, ``fused.page_program``.
 
 The upload is the plain uint8 page: the JAX package's row-delta and
 channel-fold transport is a lossless trick for its TPU link and gives the
@@ -62,6 +64,7 @@ from .ops.lanms_torch import locality_aware_nms_parallel
 from .ops.postprocess_torch import postprocess_boxes
 from .ops.reading_order import reading_order_permutation
 from .types import Block, Page, Word
+from .utils.profiling import annotate
 from .utils.visualize import visualize_page
 
 
@@ -315,11 +318,12 @@ class FusedOCR:
         imgs, pages, _hi, sx, sy, timings = prep
         self._resolve_capacity(pages[0], float(sx[0]), float(sy[0]))
         t0 = time.perf_counter()
-        boxes9 = self._detect(
-            self._upload(pages), torch.from_numpy(sx).to(self.device),
-            torch.from_numpy(sy).to(self.device),
-        )
-        pending = _Pending(boxes9)
+        with annotate("fused.phase_a"):
+            boxes9 = self._detect(
+                self._upload(pages), torch.from_numpy(sx).to(self.device),
+                torch.from_numpy(sy).to(self.device),
+            )
+            pending = _Pending(boxes9)
         timings["detect"] = time.perf_counter() - t0
         return imgs, pending, timings
 
@@ -368,10 +372,11 @@ class FusedOCR:
             self.last_overflow = dropped
         t0 = time.perf_counter()
         rec = self.recognizer
-        x = self._upload(strip).reshape(-1, rec.img_h, rec.img_w, 3)
-        pending = _Pending(*rec.recognize_tensor(
-            x, self.mode, self.beam_size, self.alpha, self.temperature
-        ))
+        with annotate("fused.phase_b"):
+            x = self._upload(strip).reshape(-1, rec.img_h, rec.img_w, 3)
+            pending = _Pending(*rec.recognize_tensor(
+                x, self.mode, self.beam_size, self.alpha, self.temperature
+            ))
         timings["recognize"] = time.perf_counter() - t0
         return imgs, boxes, rows_used, pending, nw, timings
 
@@ -445,11 +450,12 @@ class FusedOCR:
         self._resolve_capacity(pages[0], float(sx[0]), float(sy[0]))
         t0 = time.perf_counter()
         nw = self.max_words
-        outs = self._page_program(
-            self._upload(pages), None if hi is None else self._upload(hi),
-            torch.from_numpy(sx).to(self.device), torch.from_numpy(sy).to(self.device),
-        )
-        pending = _Pending(*outs)
+        with annotate("fused.page_program"):
+            outs = self._page_program(
+                self._upload(pages), None if hi is None else self._upload(hi),
+                torch.from_numpy(sx).to(self.device), torch.from_numpy(sy).to(self.device),
+            )
+            pending = _Pending(*outs)
         timings["dispatch"], timings["slots"] = time.perf_counter() - t0, nw
         return imgs, pending, nw, timings
 

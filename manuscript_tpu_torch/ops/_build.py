@@ -3,10 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for Hopper (``sm_90a``); ``csrc/lanms.cpp``, the host LANMS, is
 compiled by the host C++ compiler (``c++``, else ``g++``). Each goes into
-``build/kernels/lib<name>-<digest>.so`` at the root of the checkout; the
-digest covers the source and the flags, so an edited source never loads a
-stale library. ``build()`` starts one compiler per source, all at once.
-Nothing here runs when the package is imported.
+``lib<name>-<digest>.so`` in the build directory: ``build/kernels/`` at the
+root of the checkout, or the persistent cache that
+``utils/compile_cache.enable_compile_cache`` set. The digest covers the
+source and the flags, so an edited source never loads a stale library, not
+even from a cache that several checkouts share. ``build()`` starts one
+compiler per source, all at once. Nothing here runs when the package is
+imported.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"  # the default
+cache_dir = None  # set by utils/compile_cache.enable_compile_cache; wins over BUILD_DIR
 CUDA_SOURCES = ("attention_step", "quad_iou")
 HOST_SOURCES = ("lanms",)
 SOURCES = CUDA_SOURCES + HOST_SOURCES
@@ -71,10 +75,15 @@ def _flags(name: str):
     return FLAGS + EXTRA_FLAGS.get(name, [])
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and looked for, read at each build."""
+    return BUILD_DIR if cache_dir is None else Path(cache_dir)
+
+
 def library_path(name: str) -> Path:
     src = _source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, float]:
@@ -86,7 +95,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, fl
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     # every compiler is found before any starts
     compilers = {n: host_cxx() if n in HOST_SOURCES else nvcc() for n in todo}
     procs = {}

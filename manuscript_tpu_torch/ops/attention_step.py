@@ -24,6 +24,8 @@ from . import _build
 
 launches = 0  # decode steps run through the kernels, for proof of the route
 kernel_launches = 0  # raw kernel launches: three per step (proj_h, attention, gates)
+# a list while utils.profiling.count_flops runs: each kernel step's FLOPs
+flop_calls = None
 CLUSTER = 4  # blocks of the attention grid that share one word
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may have on Hopper
 
@@ -65,6 +67,21 @@ def attention_step_plain(
     o = torch.sigmoid(z[:, 3 * hidden :])
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new
+
+
+def step_cost(words: int, rows: int, t: int, hidden: int, e_dim: int, n_tok: int):
+    """(FLOPs, bytes) of one decode step: ``rows`` beam rows over ``words``
+    words of memory, T steps, H hidden, E features, ``n_tok`` distinct
+    tokens. FLOPs per row: proj_h (2H²), the scores (3TH + 5T), the context
+    (2TE), the gate products (8EH + 8H²) and the gates (16H). Bytes: each
+    input read once (the words' memory, h, c, the tokens, W_h2h, b_h2h,
+    w_score, W_ih[:E], the token rows used, W_hh, bias) and h', c' written,
+    in float32."""
+    flops = rows * (2 * hidden * hidden + 3 * t * hidden + 5 * t + 2 * t * e_dim
+                    + 8 * e_dim * hidden + 8 * hidden * hidden + 16 * hidden)
+    rest = (2 * rows * hidden + rows + hidden * hidden + 2 * hidden
+            + (e_dim + n_tok + hidden) * 4 * hidden + 4 * hidden + 2 * rows * hidden)
+    return flops, 4 * (words * t * (e_dim + hidden) + rest)
 
 
 def _lib():
@@ -145,6 +162,8 @@ def attention_step_cuda(
     )
     _build.check(status, "attention_step")
     launches += 1
+    if flop_calls is not None:
+        flop_calls.append(step_cost(b, r, t, hidden, e_dim, 0)[0])
     kernel_launches += 3
     return h_out, c_out
 

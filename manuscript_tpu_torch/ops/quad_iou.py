@@ -23,6 +23,10 @@ from . import _build
 
 SLOTS = 8  # most vertices quad ∩ quad can have under S-H clipping
 launches = 0  # kernel launches (gather, pairs and matrix), for proof of the route
+# a list while utils.profiling.count_flops runs: each launch's (pairs, live
+# count tensor or None), read by call_flops once the block has ended
+flop_calls = None
+OPS_PER_PAIR = 860  # floating-point operations of one clip and its two areas
 
 
 def _clip(polys, counts, a, b):
@@ -96,6 +100,28 @@ def quad_iou_matrix_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ).reshape(n, m)
 
 
+def gather_cost(n_quads: int, n_pairs: int, live_pairs: int, n_counts: int = 0):
+    """(FLOPs, bytes) of one gathered call: ``live_pairs`` of its ``n_pairs``
+    pairs clipped; the quads, both index vectors, the live counts and the
+    output each moved once."""
+    return live_pairs * OPS_PER_PAIR, 32 * n_quads + 12 * n_pairs + 4 * n_counts
+
+
+def matrix_cost(n: int, m: int):
+    """(FLOPs, bytes) of ``quad_iou_matrix`` on N × M quads."""
+    return n * m * OPS_PER_PAIR, 32 * (n + m) + 4 * n * m
+
+
+def call_flops(n_pairs: int, n_live=None) -> float:
+    """FLOPs of a launch over ``n_pairs`` pairs with the live counts
+    ``n_live`` (None: all pairs; a 0-d or (B,) tensor, read on the host)."""
+    if n_live is None:
+        return float(n_pairs * OPS_PER_PAIR)
+    cap = _live_slots(n_pairs, n_live)
+    live = n_live.reshape(-1).cpu().clamp(0, cap).sum().item()
+    return float(live * OPS_PER_PAIR)
+
+
 def _live_slots(n_pairs: int, n_live) -> int:
     """Pairs per page: all P for a 0-d count, P / B for a (B,) one."""
     if n_live.dim() == 0:
@@ -163,6 +189,8 @@ def quad_iou_pairs_cuda(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
     _build.check(status, "quad_iou_pairs")
     launches += 1
+    if flop_calls is not None:
+        flop_calls.append((q1.shape[0], None))
     return out
 
 
@@ -177,6 +205,8 @@ def quad_iou_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
     _build.check(status, "quad_iou_matrix")
     launches += 1
+    if flop_calls is not None:
+        flop_calls.append((a.shape[0] * b.shape[0], None))
     return out
 
 
@@ -214,6 +244,8 @@ def quad_iou_gather_cuda(quads, ia, ib, n_live=None) -> torch.Tensor:
     )
     _build.check(status, "quad_iou_gather")
     launches += 1
+    if flop_calls is not None:
+        flop_calls.append((ia.shape[0], None if n_live is None else n_live.clone()))
     return out
 
 

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from ..models.east import EASTModel
 from ..ops.image import resize_u8
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from ..utils.weights import (
     init_random_,
     msgpack_restore,
@@ -232,7 +233,9 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
                ohem_ratio: float = 0.5, use_focal_geo: bool = True, focal_gamma: float = 2.0,
                ema_decay: float = 0.999) -> torch.Tensor:
     """One optimizer step in place on ``state`` → the loss (at the perturbed
-    point under SAM), on the device."""
+    point under SAM), on the device. Profiler regions: SAM's
+    ``sam.first_pass`` and ``sam.second_pass`` (``east.gradient`` without
+    SAM), then ``east.update``."""
     model = state.model
     model.train()
     loss_fn = lambda: east_train_loss(model, image, score, geo, use_ohem, ohem_ratio,
@@ -244,13 +247,15 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
         g_all = dict(zip(named, g_all))
         grads = {k: g_all[k] for k in trainable}
     else:
-        loss = loss_fn()
-        grads = dict(zip(trainable, gradients(loss, list(trainable.values()))))
-    grads = guard_finite(loss, grads)
-    updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
-    apply_updates(trainable, updates)
-    if state.ema is not None:
-        ema_update(state.ema, dict(model.named_parameters()), ema_decay)
+        with annotate("east.gradient"):
+            loss = loss_fn()
+            grads = dict(zip(trainable, gradients(loss, list(trainable.values()))))
+    with annotate("east.update"):
+        grads = guard_finite(loss, grads)
+        updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
+        apply_updates(trainable, updates)
+        if state.ema is not None:
+            ema_update(state.ema, dict(model.named_parameters()), ema_decay)
     return loss.detach()
 
 

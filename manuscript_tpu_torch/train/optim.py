@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.layers import frozen_batch_stats
+from ..utils.profiling import annotate
 
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -261,25 +262,29 @@ def sam_gradient(
     e_w = (p² if adaptive else 1)·g·ρ/(‖(|p| if adaptive else 1)·g‖ + 1e-12),
     with g the gradient at ``params``. The first pass (at ``params``) moves
     the BatchNorms' running statistics of ``model``; the perturbed pass runs
-    under ``frozen_batch_stats`` and leaves them alone."""
+    under ``frozen_batch_stats`` and leaves them alone. Profiler regions:
+    ``sam.first_pass`` (the gradient at ``params`` and the perturbation) and
+    ``sam.second_pass`` (the gradient at the perturbed point, the restore)."""
     params = list(params)
-    g1 = gradients(loss_fn(), params)
-    with torch.no_grad():
-        scaled = [torch.abs(p) * g for p, g in zip(params, g1)] if adaptive else g1
-        scale = rho / (global_norm(scaled) + 1e-12)
-        e_w = ([torch.square(p) * g * scale for p, g in zip(params, g1)] if adaptive
-               else [g * scale for g in g1])
-        saved = [p.detach().clone() for p in params]
-        for p, e in zip(params, e_w):
-            p.copy_(p + e)
-    try:
-        with frozen_batch_stats(model) if model is not None else nullcontext():
-            loss2 = loss_fn()
-            g2 = gradients(loss2, params)
-    finally:
+    with annotate("sam.first_pass"):
+        g1 = gradients(loss_fn(), params)
         with torch.no_grad():
-            for p, s in zip(params, saved):
-                p.copy_(s)
+            scaled = [torch.abs(p) * g for p, g in zip(params, g1)] if adaptive else g1
+            scale = rho / (global_norm(scaled) + 1e-12)
+            e_w = ([torch.square(p) * g * scale for p, g in zip(params, g1)] if adaptive
+                   else [g * scale for g in g1])
+            saved = [p.detach().clone() for p in params]
+            for p, e in zip(params, e_w):
+                p.copy_(p + e)
+    with annotate("sam.second_pass"):
+        try:
+            with frozen_batch_stats(model) if model is not None else nullcontext():
+                loss2 = loss_fn()
+                g2 = gradients(loss2, params)
+        finally:
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
     return loss2, g2
 
 

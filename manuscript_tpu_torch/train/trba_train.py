@@ -58,6 +58,7 @@ from ..recognizers.charset import (
     load_charset,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from ..utils.weights import (
     init_random_,
     msgpack_restore,
@@ -253,15 +254,20 @@ def train_step(
 ) -> Tuple[torch.Tensor, Dict]:
     """One optimizer step on ``params`` (the trainable parameters, updated in
     place) → (loss, new optimizer state). ``batch`` holds "image" (B, H, W,
-    3) uint8, "text_in" and "target_y" (B, T) int on the model's device."""
+    3) uint8, "text_in" and "target_y" (B, T) int on the model's device.
+    Its three parts are the profiler regions ``trba.forward``,
+    ``trba.backward`` and ``trba.optimizer``."""
     model.train()
-    x = normalize(batch["image"])
-    with autocast_for(x.device, compute_dtype):
-        logits = model(x, batch["text_in"], ss_prob=ss_prob, generator=generator)
-    loss = trba_ce_loss(logits.float(), batch["target_y"], pad_id)
-    grads = guard_finite(loss, dict(zip(params, gradients(loss, list(params.values())))))
-    updates, opt_state = tx.update(grads, opt_state, params)
-    apply_updates(params, updates, None if lr_scale == 1.0 else lr_scale)
+    with annotate("trba.forward"):
+        x = normalize(batch["image"])
+        with autocast_for(x.device, compute_dtype):
+            logits = model(x, batch["text_in"], ss_prob=ss_prob, generator=generator)
+        loss = trba_ce_loss(logits.float(), batch["target_y"], pad_id)
+    with annotate("trba.backward"):
+        grads = guard_finite(loss, dict(zip(params, gradients(loss, list(params.values())))))
+    with annotate("trba.optimizer"):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        apply_updates(params, updates, None if lr_scale == 1.0 else lr_scale)
     return loss.detach(), opt_state
 
 

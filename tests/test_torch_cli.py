@@ -114,17 +114,50 @@ def test_recognize_command(monkeypatch, capsys, image_file):
     assert "word" in out and "0.7500" in out
 
 
-@pytest.mark.parametrize("argv", [
-    ["nonsense"], ["bench"], ["sweep-report", "study.json"], ["ocr", "x.png", "--n-devices", "2"],
-])
+@pytest.mark.parametrize("argv", [["nonsense"], ["ocr", "x.png", "--n-devices", "2"]])
 def test_unknown_or_unported_commands_exit(argv):
     with pytest.raises(SystemExit):
         cli.main(argv)
+
+
+def test_bench_command_runs_the_ports_bench(monkeypatch):
+    """``bench`` runs manuscript_tpu_torch/bench.py's main (the bench itself
+    runs in tests/test_torch_bench.py)."""
+    from manuscript_tpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda: calls.append("main"))
+    monkeypatch.setattr(bench, "perf_gate", lambda: calls.append("perf_gate"))
+    cli.main(["bench"])
+    assert calls == ["main"]
+
+
+def test_sweep_report_command(tmp_path, capsys):
+    from manuscript_tpu_torch.utils.sweep import Study, sweep_report
+
+    Study({"a": ("float", 0.0, 1.0), "m": ("cat", ["x", "y"])}, storage=str(tmp_path / "s.json"),
+          n_warmup=1).optimize(lambda p: p["a"], 3)
+    cli.main(["sweep-report", str(tmp_path / "s.json"), "--out", str(tmp_path / "r.html")])
+    out = capsys.readouterr().out
+    assert out == sweep_report(tmp_path / "s.json") + "\n" and "3 trials" in out
+    assert "Best trial" in (tmp_path / "r.html").read_text()
+
+
+def test_main_enables_the_kernel_cache(monkeypatch, tmp_path):
+    """Every command starts with MANUSCRIPT_TPU_KERNEL_CACHE's directory as
+    the kernels' build directory."""
+    from manuscript_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "cache_dir", None)
+    monkeypatch.setenv("MANUSCRIPT_TPU_KERNEL_CACHE", str(tmp_path / "kernels"))
+    Path(tmp_path / "s.json").write_text('{"direction": "maximize", "trials": []}')
+    cli.main(["sweep-report", str(tmp_path / "s.json")])
+    assert _build.build_dir() == tmp_path / "kernels" and (tmp_path / "kernels").is_dir()
 
 
 def test_module_runs_as_a_program():
     out = subprocess.run([sys.executable, "-m", "manuscript_tpu_torch", "--help"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    for command in ("ocr", "detect", "recognize", "serve"):
+    for command in ("ocr", "detect", "recognize", "serve", "bench", "sweep-report"):
         assert command in out.stdout

@@ -5,6 +5,12 @@ Run on a machine with an NVIDIA card: ``python -m pytest tests/test_torch_cuda.p
 This file imports neither JAX nor the JAX package.
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -238,3 +244,26 @@ def test_host_lanms_library_builds_and_loads(cuda):
     rows = _candidate_field(np.random.default_rng(3), 400)
     np.testing.assert_array_equal(lanms.locality_aware_nms(rows, 0.2),
                                   lanms.locality_aware_nms_numpy(rows, 0.2))
+
+
+# 90 % of the PERF_GATE line of the bench's first run on the card (NVIDIA
+# H100 80GB HBM3, 700.00 W): 36.695 pages/s and an MFU of 0.148851 (PERF.md)
+DEVICE_ONLY_FLOOR = 33.0
+PROGRAM_MFU_FLOOR = 0.134
+
+
+def test_perf_gate_floors(cuda):
+    """``python -m manuscript_tpu_torch.bench --perf-gate`` at full size: the
+    device-only pages/s of the device-crop page program (inputs held on the
+    card, the host's eager launches included) and its MFU stay above floors,
+    as tests/test_perf_gate.py holds the JAX package's."""
+    env = {k: v for k, v in os.environ.items() if k != "MANUSCRIPT_TPU_BENCH_SMOKE"}
+    run = subprocess.run([sys.executable, "-m", "manuscript_tpu_torch.bench", "--perf-gate"],
+                         cwd=Path(__file__).resolve().parent.parent, env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stderr[-4000:]
+    line = next(ln for ln in run.stdout.splitlines() if ln.startswith("PERF_GATE "))
+    gate = json.loads(line[len("PERF_GATE "):])
+    assert gate["backend"] == "cuda" and gate["device"].startswith(torch.cuda.get_device_name(0))
+    assert gate["device_only_pages_per_sec"] >= DEVICE_ONLY_FLOOR, gate
+    assert PROGRAM_MFU_FLOOR <= gate["program_mfu"] <= 1.05, gate

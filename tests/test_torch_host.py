@@ -126,7 +126,9 @@ def test_reading_order_bbox_and_crop_match_jax():
 
 def test_import_leaves_jax_and_image_libraries_out():
     code = (
-        "import sys, manuscript_tpu_torch, manuscript_tpu_torch.fused;"
+        "import sys, manuscript_tpu_torch, manuscript_tpu_torch.fused, manuscript_tpu_torch.bench,"
+        "manuscript_tpu_torch.serve_bench, manuscript_tpu_torch.utils.profiling,"
+        "manuscript_tpu_torch.utils.compile_cache, manuscript_tpu_torch.utils.sweep;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'cv2', 'PIL', 'pydantic', 'msgpack', 'manuscript_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
