@@ -119,7 +119,29 @@ run with a traceback and a non-zero exit:
    around each trial, and ``sweep-report`` naming its best trial; and the
    kernel cache: one process builds every source into
    ``MANUSCRIPT_TPU_KERNEL_CACHE``, a second with no compiler on PATH
-   builds nothing and loads them.
+   builds nothing and loads them;
+13. the mesh (``manuscript_tpu_torch.parallel``): the card count;
+   ``make_mesh(n_devices=1)`` runs and ``make_mesh(n_devices=count + 1)``
+   raises; phase 5's 8 pages through ``process_batch`` with two shards on the
+   one card (``make_mesh(devices=["cuda:0"] * 2)``, 4 pages a chunk, 2 a
+   shard) against no mesh at 2 pages a chunk, the capacity pinned at phase
+   5's: pages/s of both, K1 25 steps and K2 at least 2 launches per shard
+   and chunk, the same words, boxes within 1e-2 px, texts equal but for
+   ties of equal score; the same pages through ``Pipeline(mesh=)`` under a
+   process group of 2 gloo ranks on the card, each rank given every page and
+   returning every page, equal to the other rank's and to no mesh; phase
+   10's micro steps in float64 on batches whose halves differ in brightness,
+   with 2 gloo ranks on the card and with a 1-rank NCCL group
+   (``parallel.spawn``), each within 1e-8 (TRBA) or 1e-6 (EAST, float32
+   heads) of each leaf's largest entry of the 1-rank step without a group,
+   and the 2 ranks with per-rank BatchNorm statistics outside that bound;
+   ``TRBA.train`` and ``EAST.train`` with ``mesh=`` 2 gloo ranks on the card
+   (phase 10's shapes, one epoch) against the call without a mesh, step and
+   validation losses within 1e-4 relative, and EAST streamed from the host
+   with 1 rank and 2 (the host seconds per step); with two or more cards,
+   ``process_batch`` over cards 0 and 1, the TRBA step with 2 NCCL ranks and
+   the micro pages with 2 NCCL ranks (each rank returns every page) — on
+   one card it prints that this part did not run.
 
 The script sets ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` for itself and its
 subprocesses (phase 11 lifts it while it fetches from ``file://``): a
@@ -298,6 +320,19 @@ def device_trace(torch, fn) -> dict:
             "two_at_once": both}
 
 
+def full_width_models(torch):
+    """Phase 3's detector and recognizer at full width, random weights from
+    seeds 0 and 1 (phase 13's ranks load phase 3's state into them)."""
+    from manuscript_tpu_torch import EAST, TRBA
+
+    det = EAST(backbone="resnet50", target_size=1280, quantization=2,
+               max_candidates=8192, max_boxes=1024, dtype=torch.bfloat16,
+               allow_random_init=True, seed=0)
+    rec = TRBA(cnn_stage_plan="full", img_h=64, img_w=256, hidden_size=256,
+               max_length=25, allow_random_init=True, seed=1)
+    return det, rec
+
+
 def word_sized_boxes(torch, det, page) -> None:
     """Random weights give sub-pixel geometry and scores near 0.4: set the
     geometry bias to a word-sized quad (24×8 map px) and the threshold to the
@@ -392,7 +427,8 @@ def many_pages(torch, det, rec, rng, k1, k2):
     chunk_equals_pages(torch, pipe._fused, pages[:4], k1, k2)
     device_crop_pages(torch, det, rec, pages, k1, k2)
     one_stream_or_two(torch, pipe, pages + [synthetic_page(rng) for _ in range(8)])
-    return launches, chunks, {"process_batch": len(pages) / t_batch, "predict loop": len(pages) / t_loop}
+    return (launches, chunks, {"process_batch": len(pages) / t_batch, "predict loop": len(pages) / t_loop},
+            pages, pipe._fused.max_words)
 
 
 def chunk_equals_pages(torch, fused, pages, k1, k2) -> None:
@@ -921,28 +957,15 @@ def serving(torch, det, rec, rng, k1, k2) -> None:
     check(proc.poll() is not None, "serve subprocess still running")
 
 
-def micro_train_steps(torch) -> None:
-    """Phase 10, first part: one TRBA step (dropout 0) and one EAST step (ASAM
-    + SGD, OHEM, focal geometry, ``freeze_first``) from the committed micro
-    checkpoints, on the card and on the CPU, TF32 off. Both are SGD at lr 1
-    under a scale S = 1e6 (TRBA's plateau scale, EAST's learning rate), so the
-    update is −S·g: each leaf's gradient on the card within 1e-4 of the leaf's
-    largest entry of the CPU's (plus 1e-6 of the largest entry of all, for the
-    conv biases before a BatchNorm, whose gradient is 0), the loss within 1e-5
-    relative, the running statistics within 1e-4. The pixels are drawn
-    uniformly (EAST's label maps are two rendered pages' at 64²): on
-    near-white crops and pages the stem's float32 gradient is a difference
-    of nearly equal sums, which the card's and the CPU's reduction orders
-    round apart; under ASAM it sets the perturbation of the frozen stem, and
-    the card's step then parted from the CPU's by 3 % of a leaf's largest
-    entry in the first trainable block, in some runs and not in others."""
-    from manuscript_tpu_torch.models.east import EASTModel
-    from manuscript_tpu_torch.models.trba import TRBAModel
+def micro_step_inputs():
+    """Phase 10's micro steps' inputs: the committed micro checkpoints'
+    variables (flax layout), the TRBA token map, and the global batches as
+    numpy: 8 crops of uniform pixels with their targets, and 2 pages of
+    uniform pixels with two rendered pages' label maps at 64²."""
     from manuscript_tpu_torch.recognizers.charset import pack_targets
-    from manuscript_tpu_torch.train import east_train, optim, trba_train
     from manuscript_tpu_torch.train.east_dataset import rasterize_quad_maps
     from manuscript_tpu_torch.utils.synthetic import VOCAB, render_page
-    from manuscript_tpu_torch.utils.weights import msgpack_restore, params_from_jax
+    from manuscript_tpu_torch.utils.weights import msgpack_restore
 
     qdir = ROOT / "manuscript_tpu" / "configs" / "quality"
     raw = msgpack_restore(qdir / "trba_micro.msgpack")
@@ -960,48 +983,127 @@ def micro_train_steps(torch) -> None:
         score, geo = rasterize_quad_maps([w["quad"] * np.float32([64 / 192, 64 / 256]) for w in ws], 64)
         scores.append(score)
         geos.append(geo)
-    east_batch = [np.stack(a) for a in (pages, scores, geos)]
-    scale = 1e6
-    before = [params_from_jax(raw), params_from_jax(east_raw)]
+    return raw, east_raw, stoi, (crops, text_in, target_y), tuple(np.stack(a) for a in (pages, scores, geos))
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = TRBAModel(len(itos), 64, stoi["<SOS>"], stoi["<EOS>"], stoi.get("<BLANK>"), "micro",
-                          enc_dropout_p=0.0, dec_dropout_p=0.0)
-        model.load_state_dict(before[0])
-        model.to(dev)
-        params = dict(model.named_parameters())
-        tx = optim.build_trba_optimizer("sgd", 1.0)
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in (("image", crops), ("text_in", text_in), ("target_y", target_y))}
-        loss, _ = trba_train.train_step(model, tx, tx.init(params), params, batch, stoi["<PAD>"],
-                                        lr_scale=scale)
-        east = EASTModel("resnet50-micro")
-        east.load_state_dict(before[1])
-        east.to(dev)
-        mask = east_train.freeze_mask(east, True)
-        trainable = {k: p for k, p in east.named_parameters() if mask[k]}
-        etx = optim.sgd(scale, 0.9)
-        state = east_train.EASTTrainState(east, etx.init(trainable), None)
-        eloss = east_train.train_step(state, etx, trainable,
-                                      *(torch.from_numpy(a).to(dev) for a in east_batch))
-        out[dev] = [(loss.item(), {k: v.detach().cpu() for k, v in m.state_dict().items()}, names)
-                    for loss, m, names in ((loss, model, params), (eloss, east, dict(east.named_parameters())))]
-    for name, (card, cpu), start in zip(("TRBA", "EAST"), zip(out["cuda"], out["cpu"]), before):
-        grad = lambda st: {k: (start[k] - st[k]).double() / scale for k in cpu[2]}
-        g_card, g_cpu = grad(card[1]), grad(cpu[1])
-        floor = 1e-6 * max(g.abs().max().item() for g in g_cpu.values())
-        ratios = sorted(((g_card[k] - g_cpu[k]).abs().max().item()
-                         / (1e-4 * g_cpu[k].abs().max().item() + floor), k) for k in g_cpu)
-        dgrad = ratios[-1][0]
-        print(f"  worst leaves (|d| over the bound, leaf, its largest entry over the largest of all): "
-              f"{[(round(r, 4), k, round(g_cpu[k].abs().max().item() / floor * 1e-6, 8)) for r, k in ratios[-4:]]}")
-        dloss = abs(card[0] - cpu[0])
-        dstat = max((card[1][k] - cpu[1][k]).abs().max().item() for k in cpu[1] if "running" in k)
-        print(f"micro {name} train step, card vs CPU: loss {card[0]:.6f} vs {cpu[0]:.6f}, |d| "
-              f"{dloss:.3e}; gradients (update / -{scale:g}) max |d| over the bound {dgrad:.3e}; "
-              f"running statistics max |d| {dstat:.3e}")
-        check(dloss <= 1e-5 * abs(cpu[0]) and dgrad <= 1.0 and dstat <= 1e-4, (name, dloss, dgrad, dstat))
+
+MICRO_SCALE = 1e6  # the micro steps' SGD scale: the update is −S·g
+
+
+def micro_steps(torch, dev, trba_batch, east_batch, group=None, east: bool = True,
+                dtype=None, sync_bn: bool = True) -> list:
+    """One TRBA step (dropout 0) and one EAST step (ASAM + SGD, OHEM, focal
+    geometry, ``freeze_first``) from the micro checkpoints on ``dev``, SGD
+    at lr 1 under the scale S (TRBA's plateau scale, EAST's learning rate)
+    → [(loss, state dict on the CPU, trainable names, the step's seconds
+    with the card synchronised before and after)] for TRBA (and EAST). The
+    models compute in ``dtype`` (float32 by default; EAST's heads and loss
+    stay float32 in a float64 model).
+    With a process ``group`` the batches are this rank's slices, and the
+    BatchNorms (each rank's own with ``sync_bn=False``: a wrong step), the
+    losses and the gradients are the global batch's."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.models.layers import sync_batch_stats
+    from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.train import east_train, optim, trba_train
+    from manuscript_tpu_torch.utils.weights import params_from_jax
+
+    raw, east_raw, stoi = MICRO[:3]
+    model = TRBAModel(len(stoi), 64, stoi["<SOS>"], stoi["<EOS>"], stoi.get("<BLANK>"), "micro",
+                      enc_dropout_p=0.0, dec_dropout_p=0.0)
+    model.load_state_dict(params_from_jax(raw))
+    model.to(dev, dtype or torch.float32)
+    sync_batch_stats(model, group if sync_bn else None)
+    params = dict(model.named_parameters())
+    tx = optim.build_trba_optimizer("sgd", 1.0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in zip(("image", "text_in", "target_y"), trba_batch)}
+    opt_state = tx.init(params)
+    sync = lambda: torch.cuda.synchronize(dev) if torch.device(dev).type == "cuda" else None
+    sync()
+    t0 = time.perf_counter()
+    loss, _ = trba_train.train_step(model, tx, opt_state, params, batch, stoi["<PAD>"],
+                                    lr_scale=MICRO_SCALE, group=group)
+    loss = loss.item()  # waits for the step
+    out = [(loss, {k: v.detach().cpu() for k, v in model.state_dict().items()}, list(params),
+            time.perf_counter() - t0)]
+    if east:
+        model = EASTModel("resnet50-micro")
+        model.load_state_dict(params_from_jax(east_raw))
+        model.to(dev, dtype or torch.float32)
+        sync_batch_stats(model, group if sync_bn else None)
+        mask = east_train.freeze_mask(model, True)
+        trainable = {k: p for k, p in model.named_parameters() if mask[k]}
+        etx = optim.sgd(MICRO_SCALE, 0.9)
+        state = east_train.EASTTrainState(model, etx.init(trainable), None)
+        ebatch = [torch.as_tensor(a).to(dev) for a in east_batch]
+        sync()
+        t0 = time.perf_counter()
+        eloss = east_train.train_step(state, etx, trainable, *ebatch, group=group).item()
+        out.append((eloss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    list(dict(model.named_parameters())), time.perf_counter() - t0))
+    return out
+
+
+PHASE10_BOUND = (1e-4, 1e-5, 1e-4)  # (gradient, loss, running statistics): float32 card vs CPU
+# phase 13's float64 steps; EAST's heads and loss compute in float32 even so
+FLOAT64_BOUND = {"TRBA": (1e-8, 1e-10, 1e-10), "EAST": (1e-6, 1e-6, 1e-10)}
+
+
+def step_gap(torch, start: dict, ref, got, rel: float = PHASE10_BOUND[0]) -> tuple:
+    """The distance of a micro step ``got`` from ``ref`` (both
+    ``micro_steps`` entries, the same start): |d| of the loss; the largest
+    |d| of a leaf's gradient (its update / −S) over the bound, ``rel`` of
+    the leaf's largest entry plus ``rel`` / 100 of the largest entry of all
+    (for the conv biases before a BatchNorm, whose gradient is 0); the
+    running statistics' largest |d|. Prints the four worst leaves."""
+    grad = lambda st: {k: (start[k] - st[k]).double() / MICRO_SCALE for k in ref[2]}
+    g_ref, g_got = grad(ref[1]), grad(got[1])
+    top = max(g.abs().max().item() for g in g_ref.values())
+    ratios = sorted(((g_got[k] - g_ref[k]).abs().max().item()
+                     / (rel * g_ref[k].abs().max().item() + rel / 100 * top), k) for k in g_ref)
+    print(f"  worst leaves (|d| over the bound, leaf, its largest entry over the largest of all): "
+          f"{[(round(r, 4), k, round(g_ref[k].abs().max().item() / top, 8)) for r, k in ratios[-4:]]}"
+          f"; leaves over the bound {sum(r > 1 for r, _ in ratios)} of {len(ratios)}")
+    dstat = max((got[1][k] - ref[1][k]).abs().max().item() for k in ref[1] if "running" in k)
+    return abs(got[0] - ref[0]), ratios[-1][0], dstat
+
+
+def within(gap: tuple, ref_loss: float, bound: tuple = PHASE10_BOUND) -> bool:
+    dloss, dgrad, dstat = gap
+    return dloss <= bound[1] * abs(ref_loss) and dgrad <= 1.0 and dstat <= bound[2]
+
+
+def check_step(name: str, what: str, gap: tuple, ref_loss: float,
+               bound: tuple = PHASE10_BOUND) -> None:
+    dloss, dgrad, dstat = gap
+    print(f"micro {name} train step, {what}: loss |d| {dloss:.3e} (of {ref_loss:.6f}); gradients "
+          f"(update / -{MICRO_SCALE:g}) max |d| over the bound ({bound[0]:g} of a leaf's largest "
+          f"entry) {dgrad:.3e}; running statistics max |d| {dstat:.3e}")
+    check(within(gap, ref_loss, bound), (name, what, gap))
+
+
+MICRO = None  # micro_step_inputs(), set where the steps run
+
+
+def micro_train_steps(torch) -> None:
+    """Phase 10, first part: ``micro_steps`` on the card and on the CPU, TF32
+    off: each leaf's gradient on the card within 1e-4 of the leaf's largest
+    entry of the CPU's (plus 1e-6 of the largest entry of all, for the conv
+    biases before a BatchNorm, whose gradient is 0), the loss within 1e-5
+    relative, the running statistics within 1e-4 (``step_gap``). The pixels
+    are drawn uniformly (EAST's label maps are two rendered pages' at 64²):
+    on near-white crops and pages the stem's float32 gradient is a difference
+    of nearly equal sums, which the card's and the CPU's reduction orders
+    round apart; under ASAM it sets the perturbation of the frozen stem, and
+    the card's step then parted from the CPU's by 3 % of a leaf's largest
+    entry in the first trainable block, in some runs and not in others."""
+    from manuscript_tpu_torch.utils.weights import params_from_jax
+
+    global MICRO
+    MICRO = micro_step_inputs()
+    start = [params_from_jax(MICRO[0]), params_from_jax(MICRO[1])]
+    out = {dev: micro_steps(torch, dev, *MICRO[3:]) for dev in ("cuda", "cpu")}
+    for name, card, cpu, st in zip(("TRBA", "EAST"), out["cuda"], out["cpu"], start):
+        check_step(name, "card vs CPU", step_gap(torch, st, cpu, card), cpu[0])
 
 
 @contextlib.contextmanager
@@ -1827,6 +1929,359 @@ def measuring_tools(torch, k1, det, rec, rng) -> None:
         kernel_cache(Path(tmp))
 
 
+def split_brightness(trba_batch, east_batch) -> tuple:
+    """Phase 10's micro batches with their halves set apart: the uniform
+    pixels of the first half of each batch mapped onto [0, 192), of the
+    second onto [64, 256), so that statistics per rank differ from the
+    global batch's (as in tests/test_torch_mesh_train.py)."""
+    def split(x):
+        x = x.astype(np.uint16) * 3 // 4
+        x[len(x) // 2:] += 64
+        return x.astype(np.uint8)
+
+    return (split(trba_batch[0]), *trba_batch[1:]), (split(east_batch[0]), *east_batch[1:])
+
+
+def _rank_micro_steps(mesh, east: bool = True, sync_bn: bool = True) -> list:
+    """On each rank of ``mesh`` (``parallel.spawn``): phase 10's micro steps
+    in float64 on the rank's slices of ``split_brightness``'s global
+    batches, twice (the first warms cuDNN and the allocator) → rank 0's
+    second. ``sync_bn=False`` keeps each rank's BatchNorm statistics its
+    own (a wrong step)."""
+    import torch
+    from manuscript_tpu_torch.parallel import shard_batch
+
+    global MICRO
+    MICRO = micro_step_inputs()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.local_shards[0][1]
+    pieces = [shard_batch(b, mesh)[0] for b in split_brightness(*MICRO[3:])]
+    micro_steps(torch, dev, *pieces, mesh.group, east, torch.float64, sync_bn)
+    return micro_steps(torch, dev, *pieces, mesh.group, east, torch.float64, sync_bn)
+
+
+def micro_pages(mesh=None) -> list:
+    """4 held-out pages through the micro checkpoints' pipeline, TF32 off,
+    on ``mesh`` (2 pages a chunk) or on the card without one (1 a chunk) →
+    every page's (text, polygon) pairs. Trained weights: unlike the random
+    full-width ones, their beams have no ties, so texts must be equal."""
+    import torch
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda" if mesh is None else str(mesh.local_shards[0][1])
+    pipe = Pipeline(*load_quality_models(dev), device=dev, max_words=32,
+                    batch_pages=1 if mesh is None else 2, mesh=mesh)
+    return [[(w.text, w.polygon) for w in words_of(p)]
+            for p in pipe.process_batch([p for p, _ in eval_pages(4, seed=9100)])]
+
+
+def same_micro_pages(got, want, what: str) -> None:
+    check([[t for t, _ in p] for p in got] == [[t for t, _ in p] for p in want], ("micro texts", what))
+    box_d = max(np.abs(np.subtract(a, b)).max() for g, w in zip(got, want)
+                for (_, a), (_, b) in zip(g, w))
+    print(f"  micro checkpoints, {what}: {sum(len(p) for p in got)} words on {len(got)} pages, "
+          f"texts equal to no mesh, max box |d| {box_d:.3e} px")
+    check(box_d <= 1e-2, ("micro boxes", what, box_d))
+
+
+def _rank_micro_pages(mesh) -> list:
+    """On each rank of ``mesh``: ``micro_pages`` on the rank's mesh → rank
+    0's and rank 1's."""
+    import torch
+
+    mine = micro_pages(mesh)
+    theirs = [mine]
+    torch.distributed.broadcast_object_list(theirs, src=1)
+    return [mine, theirs[0]]
+
+
+def _rank_full_pages(mesh, path: str) -> list:
+    """On each rank of ``mesh`` (a process group): phase 3's full-width
+    models, loaded from ``path`` with phase 5's pages and capacity, in a
+    ``Pipeline(mesh=)`` whose ``process_batch`` of the 8 pages (4 a chunk, 2
+    a rank) is timed after a warm-up, then ``micro_pages`` on the mesh →
+    every rank's (pages, seconds, its own K1/K2 launches, micro pages),
+    gathered."""
+    import torch
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.ops import attention_step as k1, quad_iou as k2
+
+    saved = torch.load(path, weights_only=False)
+    det, rec = full_width_models(torch)
+    det.model.load_state_dict(saved["det"])
+    rec.model.load_state_dict(saved["rec"])
+    det.score_thresh = saved["thresh"]
+    pipe = Pipeline(det, rec, beam_size=8, batch_pages=4, max_words=saved["capacity"], mesh=mesh)
+    pipe.process_batch(saved["pages"][:4])  # warm-up: cuDNN plans at these shapes
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    pages = pipe.process_batch(saved["pages"])
+    torch.cuda.synchronize()
+    mine = (pages, time.perf_counter() - t0, {"attention_step": k1.launches, "quad_iou": k2.launches},
+            micro_pages(mesh))
+    every = [None] * mesh.world_size
+    torch.distributed.all_gather_object(every, mine)
+    return every
+
+
+def same_pages(got, want) -> None:
+    """Pages of a mesh run against the run without: the same words, boxes
+    within 1e-2 px, and the same texts but for ties of equal score (a word
+    may read otherwise only when both confidences agree within 1e-6). The
+    random weights' beams are full of such ties, and a shard's phase B may
+    run at another slot count than the chunk of 2 pages without the mesh
+    (the capacity bucket is the chunk's densest page's, as in the JAX
+    package), so cuBLAS may sum in another order."""
+    check([len(words_of(g)) for g in got] == [len(words_of(w)) for w in want],
+          ([len(words_of(g)) for g in got], [len(words_of(w)) for w in want]))
+    words = [(a, b) for g, w in zip(got, want) for a, b in zip(words_of(g), words_of(w))]
+    box_d = max(np.abs(np.subtract(a.polygon, b.polygon)).max() for a, b in words)
+    other = [(a.text, b.text, a.recognition_confidence, b.recognition_confidence)
+             for a, b in words if a.text != b.text]
+    print(f"  {len(words)} words on {len(got)} pages: max box |d| {box_d:.3e} px; other texts "
+          f"{len(other)} {other[:3]}")
+    check(box_d <= 1e-2, box_d)
+    check(all(abs(c1 - c2) <= 1e-6 for *_, c1, c2 in other), other)
+
+
+def mesh_inference(torch, det, rec, pages, capacity, k1, k2) -> dict:
+    """Phase 13, inference: phase 5's 8 pages through ``process_batch`` with
+    a mesh of two shards on the one card (4 pages a chunk, 2 a shard)
+    against the same pages without a mesh at 2 a chunk (each shard's
+    shapes), the capacity pinned at phase 5's; pages/s of both, and the
+    kernels' launches around the mesh run (25 K1 steps and at least 2 K2
+    launches per shard and chunk)."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.parallel import make_mesh
+
+    kw = dict(beam_size=8, max_words=capacity)
+    plain = Pipeline(det, rec, batch_pages=2, **kw)
+    meshed = Pipeline(det, rec, batch_pages=4, mesh=make_mesh(devices=["cuda:0"] * 2), **kw)
+    check(len(meshed._fused._replicas) == 2, "a copy of the models per shard")
+    rates, outs = {}, {}
+    for name, pipe in (("no mesh, 2 pages a chunk", plain), ("2 shards on cuda:0", meshed)):
+        pipe.process_batch(pages[:4])  # warm-up: cuDNN plans at these shapes
+        torch.cuda.synchronize()
+        k1.launches = k1.kernel_launches = k2.launches = 0
+        t0 = time.perf_counter()
+        outs[name] = pipe.process_batch(pages)
+        torch.cuda.synchronize()
+        rates[name] = len(pages) / (time.perf_counter() - t0)
+        launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+        print(f"{name}: {rates[name]:.4f} pages/s; launches {launches} on "
+              f"{len(pipe._fused.chunk_timings)} chunks, slots "
+              f"{[c['slots'] for c in pipe._fused.chunk_timings]}")
+    # the mesh run's: 2 chunks × 2 shards
+    print(f"launches per shard and chunk, mesh run: {({k: v / 4 for k, v in launches.items()})}")
+    check(launches["attention_step"] == 25 * 4 and launches["quad_iou"] >= 2 * 4, launches)
+    same_pages(outs["2 shards on cuda:0"], outs["no mesh, 2 pages a chunk"])
+    same_micro_pages(micro_pages(make_mesh(devices=["cuda:0"] * 2)), micro_pages(),
+                     "2 shards on cuda:0")
+    torch.backends.cudnn.allow_tf32 = True
+    return {"rates": rates, "launches": launches, "want": outs["no mesh, 2 pages a chunk"]}
+
+
+def mesh_group_pages(torch, det, rec, pages, capacity, want, tmp: Path) -> None:
+    """Phase 13, inference under a process group: 2 gloo ranks on the one
+    card (``_rank_full_pages``), each given phase 5's 8 pages, each
+    returning every page, equal to the other rank's and, as ``same_pages``
+    holds them, to the run without a mesh at 2 pages a chunk."""
+    from manuscript_tpu_torch.parallel import make_mesh, spawn
+
+    path = tmp / "full_width.pt"
+    torch.save({"det": det.model.state_dict(), "rec": rec.model.state_dict(),
+                "thresh": det.score_thresh, "pages": pages, "capacity": capacity}, path)
+    t0 = time.perf_counter()
+    ranks = spawn(_rank_full_pages, make_mesh(devices=["cuda:0"] * 2), str(path))
+    print(f"Pipeline(mesh=).process_batch under 2 gloo ranks on cuda:0: started, ran and ended in "
+          f"{time.perf_counter() - t0:.2f} s")
+    micro_want = micro_pages()
+    for rank, (got, seconds, launches, micro) in enumerate(ranks):
+        print(f"  rank {rank}: {len(got)} pages in {seconds:.4f} s = {len(got) / seconds:.4f} "
+              f"pages/s; its launches {launches}")
+        check(launches["attention_step"] == 25 * 2 and launches["quad_iou"] >= 2 * 2, launches)
+        same_pages(got, want)
+        same_micro_pages(micro, micro_want, f"rank {rank} of 2 gloo ranks on cuda:0")
+    first, second = ([[(w.text, w.polygon) for w in words_of(p)] for p in r[0]] for r in ranks)
+    check(first == second, "every rank builds the same pages")
+    print("  both ranks returned every page, the same pages")
+
+
+def _trainer_runs(torch, name: str, fn, mesh) -> dict:
+    """``fn(mesh)`` (a trainer's call) without a mesh and with ``mesh`` →
+    each call's result and wall seconds, printed."""
+    out = {}
+    for what, m in (("no mesh", None), ("2 gloo ranks on cuda:0", mesh)):
+        t0 = time.perf_counter()
+        out[what] = fn(m)
+        wall = time.perf_counter() - t0
+        h = out[what]["history"]
+        check(all(np.isfinite(e["train_loss"]) and np.isfinite(e["val_loss"]) for e in h), h)
+        steps = sum(len(e["train_losses"]) for e in h)
+        host = sum(e["host_s"] for e in h)
+        print(f"{name}, {what}: wall {wall:.2f} s (with a mesh, the ranks' start included); "
+              f"{steps} steps; "
+              f"step losses {[v for e in h for v in e['train_losses']]}; host seconds per step "
+              f"(rank 0's batch building) {host / steps:.4f}")
+    return out
+
+
+def mesh_trainers(torch, tmp: Path) -> None:
+    """Phase 13, training through the entry points: ``TRBA.train`` and
+    ``EAST.train`` with ``mesh=`` 2 gloo ranks on the one card (each call
+    starts its ranks: spawn, the weights' broadcast, the ranks' own rows,
+    the validation's gather, rank 0's writes) against the same call without
+    a mesh, TF32 off on both sides (the ranks through
+    ``NVIDIA_TF32_OVERRIDE=0``): every step loss and the validation loss
+    within 1e-4 relative. TRBA at phase 10's shapes (256 crops of 64×256,
+    batch 64, dropout on, drawn for the global batch; the host augmentation
+    off, as its streams are per rank by design) for one epoch of 4 steps,
+    with SGD (momentum 0.9, lr 1e-2): Adam's first steps move each entry by
+    about ±lr whatever the size of its gradient, so float32 rounding of the
+    near-zero entries (another batch size, other cuDNN kernels) flips their
+    signs, and the validation loss parted by 5.3e-5 relative after 4 Adam
+    steps in the first run of this comparison; EAST at phase 10's (resnet101, 1024², ASAM + SGD, OHEM,
+    focal geometry, multiscale, freeze_first) on 8 pages at batch 4 (2 a
+    rank) for one epoch of 2 steps, card-resident. Then EAST streamed from
+    the host (its augmentation on), 1 rank against 2: rank 0's seconds of
+    batch building per step."""
+    from manuscript_tpu_torch import EAST, TRBA
+    from manuscript_tpu_torch.parallel import make_mesh
+    from manuscript_tpu_torch.utils.synthetic import build_page_dataset, build_word_dataset
+
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    tsv, imgs = build_word_dataset(tmp / "words", 256, seed=1)
+    vtsv, vimgs = build_word_dataset(tmp / "val_words", 64, seed=2)
+    cfg = dict(exp_root=str(tmp / "trba"), cnn_stage_plan="full", img_h=64, img_w=256,
+               hidden_size=256, max_len=25, batch_size=64, lr=1e-2, optimizer="sgd",
+               grad_clip=5.0, eval_beam=True, beam_size=8, epochs=1, seed=0,
+               aug_params=dict(p_ShiftScaleRotate=0.0, p_BrightnessContrast=0.0))
+    runs = _trainer_runs(torch, "TRBA.train full width", lambda m: TRBA.train(
+        tsv, imgs, vtsv, vimgs, config=dict(cfg, exp_name="mesh" if m else "one"), mesh=m), mesh)
+    coco, pages, _ = build_page_dataset(tmp / "pages", 8, seed=3)
+    vcoco, vpages, _ = build_page_dataset(tmp / "val_pages", 4, seed=4)
+    common = dict(experiment_root=str(tmp / "east"), target_size=1024, batch_size=4, epochs=1)
+    east = _trainer_runs(torch, "EAST.train resnet101 at 1024², card-resident", lambda m: EAST.train(
+        pages, coco, vpages, vcoco, model_name=f"dev{m is not None}", cache_device=True, mesh=m,
+        **common), mesh)
+    for name, got in (("TRBA", runs), ("EAST", east)):
+        one, two = got["no mesh"], got["2 gloo ranks on cuda:0"]
+        la = [v for e in one["history"] for v in e["train_losses"]]
+        lb = [v for e in two["history"] for v in e["train_losses"]]
+        va, vb = one["history"][-1]["val_loss"], two["history"][-1]["val_loss"]
+        worst = max(abs(x - y) / abs(x) for x, y in zip(la + [va], lb + [vb]))
+        print(f"{name}.train with 2 ranks vs without a mesh: validation loss {vb!r} vs {va!r}; "
+              f"largest relative |d| of the step and validation losses {worst:.3e}")
+        check(len(la) == len(lb) and worst <= 1e-4, (name, la, lb, va, vb))
+    for k in ("no mesh", "2 gloo ranks on cuda:0"):
+        check(runs[k]["history"][0]["beam"] is not None, "beam validation ran")
+    _trainer_runs(torch, "EAST.train resnet101 at 1024², streamed from the host", lambda m: EAST.train(
+        pages, coco, vpages, vcoco, model_name=f"host{m is not None}", mesh=m, **common), mesh)
+    del os.environ["NVIDIA_TF32_OVERRIDE"]
+
+
+def mesh_steps(torch) -> tuple:
+    """Phase 13, the step: phase 10's micro steps on ``split_brightness``'s
+    batches with 2 gloo ranks on the one card (NCCL refuses two ranks on one
+    device) and with a 1-rank NCCL group, against the 1-rank step without a
+    group on the same global batch, all in float64 and within
+    ``FLOAT64_BOUND`` (TRBA: each leaf's gradient within 1e-8 of the leaf's
+    largest entry plus 1e-10 of the largest of all, the loss within 1e-10
+    relative; EAST, whose heads and loss compute in float32: 1e-6 and 1e-6;
+    the running statistics within 1e-10); the seconds of each step (rank
+    0's). The same 2 ranks with per-rank BatchNorm statistics must fail that
+    bound. float64, as float32's two summation orders part by up to phase
+    10's 1e-4 bound: on phase 10's crops one train-mode BatchNorm output
+    before a ReLU lies within 4.2e-8 of its layer's largest from 0 on the
+    card, and the ranks' sums in another order moved one entry of that
+    channel's bias gradient by 1.2 % of the leaf's largest."""
+    from manuscript_tpu_torch.parallel import make_mesh, spawn
+    from manuscript_tpu_torch.utils.weights import params_from_jax
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    start = [{k: v.double() for k, v in params_from_jax(m).items()} for m in MICRO[:2]]
+    batches = split_brightness(*MICRO[3:])
+    micro_steps(torch, "cuda", *batches, dtype=torch.float64)  # warm-up
+    one = micro_steps(torch, "cuda", *batches, dtype=torch.float64)
+    for what, mesh, sync_bn in (("2 gloo ranks on cuda:0", make_mesh(devices=["cuda:0"] * 2), True),
+                                ("1-rank NCCL group", make_mesh(devices=["cuda:0"]), True),
+                                ("2 gloo ranks, per-rank BatchNorm (wrong)",
+                                 make_mesh(devices=["cuda:0"] * 2), False)):
+        t0 = time.perf_counter()
+        ranks = spawn(_rank_micro_steps, mesh, True, sync_bn)
+        print(f"{what}: started, stepped twice and ended in {time.perf_counter() - t0:.2f} s")
+        for name, ref, got, st in zip(("TRBA", "EAST"), one, ranks, start):
+            print(f"  {name} float64 step seconds: {got[3]:.4f} ({what}) vs {ref[3]:.4f} "
+                  "(1 rank, no group)")
+            gap = step_gap(torch, st, ref, got, FLOAT64_BOUND[name][0])
+            if sync_bn:
+                check_step(name, f"{what} vs 1 rank, float64", gap, ref[0], FLOAT64_BOUND[name])
+            else:
+                print(f"micro {name} train step, {what}: loss |d| {gap[0]:.3e}, gradients max |d| "
+                      f"over the bound {gap[1]:.3e}, running statistics max |d| {gap[2]:.3e}: "
+                      "outside the bound, as it must be")
+                check(not within(gap, ref[0], FLOAT64_BOUND[name]), (name, what, gap))
+    return one, start
+
+
+def mesh_on_card(torch, det, rec, pages, capacity, k1, k2) -> dict:
+    """Phase 13: ``make_mesh``'s one card and its refusal of more cards than
+    there are, ``mesh_inference``, ``mesh_group_pages``, ``mesh_steps``,
+    ``mesh_trainers``, and over two distinct cards with NCCL where the
+    machine has them."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.parallel import make_mesh, spawn
+
+    count = torch.cuda.device_count()
+    print(f"device_count {count}")
+    check(make_mesh(n_devices=1).shape == {"data": 1, "model": 1}, "make_mesh(n_devices=1)")
+    try:
+        make_mesh(n_devices=count + 1)
+    except ValueError as e:
+        print(f"make_mesh(n_devices={count + 1}) raises: {e}")
+    else:
+        check(False, f"make_mesh(n_devices={count + 1}) did not raise")
+    result = mesh_inference(torch, det, rec, pages, capacity, k1, k2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh_group_pages(torch, det, rec, pages, capacity, result["want"], Path(tmp))
+        one, start = mesh_steps(torch)
+        mesh_trainers(torch, Path(tmp))
+    if count < 2:
+        print(f"not run: the multi-card part (process_batch over cards 0 and 1, the TRBA step and "
+              f"the micro pages with 2 NCCL ranks), which needs 2 cards: this machine has {count}")
+        return result
+    torch.backends.cudnn.allow_tf32 = True
+    cards = Pipeline(det, rec, beam_size=8, batch_pages=4, max_words=capacity,
+                     mesh=make_mesh(n_devices=2))
+    cards.process_batch(pages[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = cards.process_batch(pages)
+    torch.cuda.synchronize()
+    rate = result["rates"]["2 shards on cards 0 and 1"] = len(pages) / (time.perf_counter() - t0)
+    print(f"2 shards on cards 0 and 1: {rate:.4f} pages/s")
+    same_pages(got, result["want"])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    (trba,) = spawn(_rank_micro_steps, make_mesh(n_devices=2), False)
+    print(f"  TRBA step seconds: {trba[3]:.4f} (2 NCCL ranks) vs {one[0][3]:.4f} (1 rank)")
+    check_step("TRBA", "2 NCCL ranks on cards 0 and 1 vs 1 rank",
+               step_gap(torch, start[0], one[0], trba, FLOAT64_BOUND["TRBA"][0]), one[0][0],
+               FLOAT64_BOUND["TRBA"])
+    ranks = spawn(_rank_micro_pages, make_mesh(n_devices=2))
+    want = micro_pages()
+    for rank, got in enumerate(ranks):
+        same_micro_pages(got, want, f"rank {rank} of 2 NCCL ranks")
+    print("2 NCCL ranks on cards 0 and 1: each rank returned every micro page, equal to one process")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1972,11 +2427,7 @@ def main() -> int:
 
     # ---- 3. full width, random init ----------------------------------------
     phase("3 full width, random weights")
-    det = EAST(backbone="resnet50", target_size=1280, quantization=2,
-               max_candidates=8192, max_boxes=1024, dtype=torch.bfloat16,
-               allow_random_init=True, seed=0)
-    rec = TRBA(cnn_stage_plan="full", img_h=64, img_w=256, hidden_size=256,
-               max_length=25, allow_random_init=True, seed=1)
+    det, rec = full_width_models(torch)
     first_pass_cost(torch, rec)
     pipe = Pipeline(det, rec, beam_size=8)
     pages = [synthetic_page(rng) for _ in range(4)]
@@ -2051,7 +2502,7 @@ def main() -> int:
     # ---- 5. many pages, full width -------------------------------------------
     phase("5 many pages, full width, random weights")
     torch.backends.cudnn.allow_tf32 = True  # torch's default, as phase 3 ran
-    batch_launches, chunks, fused_rates = many_pages(torch, det, rec, rng, k1, k2)
+    batch_launches, chunks, fused_rates, pages5, capacity5 = many_pages(torch, det, rec, rng, k1, k2)
 
     # ---- 6. micro checkpoints: process_batch against predict on the card ------
     phase("6 micro checkpoints, process_batch vs predict and calibrate, card vs CPU")
@@ -2088,6 +2539,14 @@ def main() -> int:
     print(smi)
     measuring_tools(torch, k1, det, rec, rng)
 
+    # ---- 13. the mesh ---------------------------------------------------------------------
+    phase("13 mesh on the card")
+    print(smi)
+    # torch's defaults (phase 11 turned matmul TF32 on), which the ranks that
+    # phase 13 spawns start with: their pages are held to this process's
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    mesh_result = mesh_on_card(torch, det, rec, pages5, capacity5, k1, k2)
+
     # ---- result ---------------------------------------------------------------
     phase("result")
     print(smi)
@@ -2101,7 +2560,8 @@ def main() -> int:
     k3_ms, k3_plain_ms, k3_bound, k3_by, _ = k3_rows_[8192]
     print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
           f"Pipeline.predict on 3 pages in phase 3: {launches}; training's validations in "
-          f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}), K3 launches of "
+          f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}; phase 13, two shards "
+          f"on one card: {mesh_result['launches']}), K3 launches of "
           f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
           f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
     rows = [

@@ -1,10 +1,10 @@
 """Command line of the port (counterpart of ``manuscript_tpu/__main__.py``),
 on the card:
 
-    python -m manuscript_tpu_torch ocr page.jpg [more.jpg ...] [--out result.json] [--vis page.png]
+    python -m manuscript_tpu_torch ocr page.jpg [more.jpg ...] [--out result.json] [--vis page.png] [--n-devices 2]
     python -m manuscript_tpu_torch detect page.jpg [--thresh 0.6] [--out boxes.json] [--vis boxes.png]
     python -m manuscript_tpu_torch recognize crop1.png crop2.png [--mode greedy]
-    python -m manuscript_tpu_torch serve [--port 8000]
+    python -m manuscript_tpu_torch serve [--port 8000] [--n-devices 2]
     python -m manuscript_tpu_torch bench
     python -m manuscript_tpu_torch sweep-report study.db [--out report.html]
 
@@ -15,6 +15,8 @@ writes the page drawn with its words (PIL; the format from the file name).
 ``bench`` runs ``manuscript_tpu_torch/bench.py`` (``MANUSCRIPT_TPU_BENCH_SMOKE=1``
 runs it on the CPU at tiny shapes). ``MANUSCRIPT_TPU_KERNEL_CACHE`` names a
 persistent directory for the built kernels (``utils/compile_cache.py``).
+``--n-devices N`` (N > 1) shards the pages of ``ocr`` and ``serve`` over a
+mesh of the first N cards (``parallel.make_mesh``).
 """
 
 from __future__ import annotations
@@ -44,12 +46,22 @@ def _out_path(out: str, image: str, images) -> str:
     return str(out_path.with_name(f"{out_path.stem}.{stem}{out_path.suffix}"))
 
 
+def _mesh_from_args(args):
+    """A data mesh over the first ``--n-devices`` cards when N > 1, else
+    None."""
+    if args.n_devices > 1:
+        from .parallel import make_mesh
+
+        return make_mesh(args.n_devices)
+    return None
+
+
 def cmd_ocr(args):
     from . import Pipeline
 
     pipe = Pipeline(
         mode=args.mode, batch_pages=args.batch_pages, max_words=args.max_words,
-        crop_scale=args.crop_scale, crop_source=args.crop_source,
+        crop_scale=args.crop_scale, crop_source=args.crop_source, mesh=_mesh_from_args(args),
     )
     if len(args.images) > 1 and not args.vis:
         # many pages ride process_batch: batch_pages pages per device pass
@@ -125,7 +137,7 @@ def cmd_serve(args):
 
     pipe = Pipeline(
         mode=args.mode, batch_pages=args.batch_pages, max_words=args.max_words,
-        crop_source=args.crop_source,
+        crop_source=args.crop_source, mesh=_mesh_from_args(args),
     )
     server = OCRServer(
         pipe, host=args.host, port=args.port, batch_wait_ms=args.batch_wait_ms,
@@ -167,6 +179,9 @@ def main(argv=None):
                    help="'native' (default): crops from the full-resolution page on the "
                         "host; 'device': crops gathered on the device from the "
                         "detector's copy")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="shard the pages over an N-card data mesh; --batch-pages rounds up "
+                        "to a multiple of N")
     p.set_defaults(func=cmd_ocr)
 
     p = sub.add_parser("detect", help="text detection only")
@@ -214,6 +229,9 @@ def main(argv=None):
                    help="bounded admission queue; a full queue returns 429")
     p.add_argument("--request-timeout-s", type=float, default=120.0,
                    help="end-to-end budget of a request; expiry returns 504")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="shard each micro-batch over an N-card data mesh; --batch-pages "
+                        "rounds up to a multiple of N")
     p.set_defaults(func=cmd_serve)
 
     args = parser.parse_args(argv)

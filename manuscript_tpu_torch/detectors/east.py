@@ -50,6 +50,14 @@ from ..ops.lanms import locality_aware_nms
 from ..ops.lanms_torch import locality_aware_nms as device_lanms
 from ..ops.postprocess_torch import postprocess_boxes
 from ..ops.reading_order import reading_order_permutation
+from ..parallel.mesh import (
+    DATA_AXIS,
+    all_gather_rows,
+    on_device,
+    one_device_mesh,
+    replicate,
+    shard_batch,
+)
 from ..types import Block, Page, Word
 from ..utils.device import resolve_device
 from ..utils.visualize import visualize_page
@@ -140,6 +148,7 @@ class EAST:
                 "for untrained weights"
             )
         self.model.to(device=self.device, dtype=dtype).eval()
+        self._mesh_models: Dict[Any, List[EASTModel]] = {}
 
     def save(self, path: Union[str, Path]) -> None:
         """Write the model's variables as a flax ``.msgpack`` checkpoint
@@ -158,10 +167,12 @@ class EAST:
 
     # ---- device stages -------------------------------------------------------
 
-    def maps(self, pages: torch.Tensor):
+    def maps(self, pages: torch.Tensor, model: Optional[EASTModel] = None):
         """(B, target, target, 3) uint8 pages on the device → score (B, h, w)
-        and geometry (B, h, w, 8), float32."""
-        out = self.model((pages.to(self.dtype) / 255.0 - 0.5) / 0.5)
+        and geometry (B, h, w, 8), float32. ``model``: a copy of the
+        wrapper's model on the pages' device (a mesh's replica), else the
+        wrapper's own."""
+        out = (self.model if model is None else model)((pages.to(self.dtype) / 255.0 - 0.5) / 0.5)
         return out["score"][..., 0], out["geometry"]
 
     def candidates(self, score: torch.Tensor, geo: torch.Tensor, score_thresh=None) -> torch.Tensor:
@@ -254,22 +265,44 @@ class EAST:
         vis: bool = False,
         profile: bool = False,
         sort_reading_order: bool = False,
+        mesh=None,
     ) -> List[Dict[str, Any]]:
         """Detect over many pages: one batched forward, decode and compaction
         per chunk of ``batch_size`` pages on the device (every chunk launched
         before the first is fetched), then the host LANMS and box chain per
-        page. Returns one result dict per page, as ``predict``. Short chunks
-        are not padded: nothing is compiled for a batch size."""
+        page. Returns one result dict per page, as ``predict``. ``mesh``
+        (``parallel.make_mesh``) shards each chunk's pages over its data
+        axis, on copies of the model made once per mesh: ``batch_size``
+        rounds up to a multiple of the data-axis size and a short chunk
+        repeats its last page to one. Under a process group every rank
+        passes the same pages and gets every page's result. Without a mesh
+        the chunks run on the 1 × 1 mesh of the wrapper's device with its
+        own model, and a short chunk is not padded: nothing is compiled for
+        a batch size."""
+        if mesh is None:  # the wrapper's own model on its device
+            mesh, models = one_device_mesh(self.device), [self.model]
+        else:
+            if mesh not in self._mesh_models:
+                self._mesh_models[mesh] = replicate(self.model, mesh)
+            models = self._mesh_models[mesh]
+        n_data = mesh.shape[DATA_AXIS]
+        batch_size = max(n_data, -(-batch_size // n_data) * n_data)
         loaded = [read_image(im) for im in images]
         pending = []
-        for start in range(0, len(loaded), max(1, batch_size)):
-            chunk = loaded[start : start + max(1, batch_size)]
-            x = self._upload(np.stack([detector_preprocess_host(im, self.target_size) for im in chunk]))
-            pending.append((start, chunk, self.candidates(*self.maps(x))))
+        for start in range(0, len(loaded), batch_size):
+            chunk = loaded[start : start + batch_size]
+            x = np.stack([detector_preprocess_host(im, self.target_size) for im in chunk])
+            x = np.concatenate([x, x[-1:].repeat((-len(chunk)) % n_data, axis=0)])
+            cands = []
+            for (_, dev), model, (piece,) in zip(mesh.local_shards, models,
+                                                  shard_batch((x,), mesh)):
+                with on_device(dev):
+                    cands.append(all_gather_rows(self.candidates(*self.maps(piece, model)), mesh))
+            pending.append((start, chunk, cands))
         results = []
         for start, chunk, cands in pending:
             t0 = time.perf_counter()
-            cands_np = cands.cpu().numpy()
+            cands_np = np.concatenate([c.cpu().numpy() for c in cands])[: len(chunk)]
             if profile:
                 print(f"  Batched detect sync [{start}:{start + len(chunk)}]: "
                       f"{time.perf_counter() - t0:.3f}s")

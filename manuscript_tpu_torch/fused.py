@@ -36,6 +36,19 @@ nothing here is compiled for a fixed batch. Each launch is a profiler and
 NVTX region (``utils/profiling.annotate``): ``fused.phase_a``,
 ``fused.phase_b`` and, on the device-crop path, ``fused.page_program``.
 
+Every launch goes through a mesh (``parallel.make_mesh``); without one it
+is the 1 × 1 mesh of the detector's device, holding the wrappers' own
+models. Every chunk, a single page's too, is padded to a multiple of the
+mesh's data axis by repeating its last page, and cut into contiguous slices
+of pages, one per data row. The main thread launches each device phase on
+every slice, on the slice's device with that device's copy of the models,
+before it waits for any; the outputs come back in page order. Under a
+process group every process gets the same pages and computes its rank's
+slice; the outputs are gathered from all ranks, so every process builds
+every page, and the stages of a chunk run one after another on the calling
+thread (``start_batch`` then only prepares the pages: the launches and
+their collectives stay on the thread that finishes).
+
 The upload is the plain uint8 page: the JAX package's row-delta and
 channel-fold transport is a lossless trick for its TPU link and gives the
 same bytes on the device. At most ``max_words`` words are recognized per
@@ -63,6 +76,16 @@ from .ops.image import crop_axis_aligned, detector_preprocess_host, read_image, 
 from .ops.lanms_torch import locality_aware_nms_parallel
 from .ops.postprocess_torch import postprocess_boxes
 from .ops.reading_order import reading_order_permutation
+from .parallel.mesh import (
+    DATA_AXIS,
+    all_gather_rows,
+    broadcast_,
+    on_device,
+    one_device_mesh,
+    rank_rows,
+    replicate,
+    shard_batch,
+)
 from .types import Block, Page, Word
 from .utils.profiling import annotate
 from .utils.visualize import visualize_page
@@ -92,6 +115,18 @@ class _Pending:
         return [t.numpy() for t in self.host]
 
 
+class _Gathered:
+    """The results of a phase launched on several slices of a chunk: each
+    slice's ``_Pending``; ``wait`` joins them along the page axis."""
+
+    def __init__(self, parts: List[_Pending]):
+        self.parts = parts
+
+    def wait(self) -> List[np.ndarray]:
+        outs = [p.wait() for p in self.parts]
+        return outs[0] if len(outs) == 1 else [np.concatenate(o) for o in zip(*outs)]
+
+
 class FusedOCR:
     CAPACITY_BUCKETS = (32, 64, 128, 256)  # word slots per page in a phase-B call
     CAPACITY_HEADROOM = 8  # spare slots a bucket keeps (fewer for small ones)
@@ -113,10 +148,16 @@ class FusedOCR:
         batch_pages: int = 4,
         crop_scale: int = 1,
         crop_source: str = "native",
+        mesh=None,
     ):
         """``batch_pages`` pages share one phase-A and one phase-B pass in
         ``predict_many``. ``crop_scale=k`` crops from a (k·target)² copy of
-        the page and selects ``crop_source="device"``."""
+        the page and selects ``crop_source="device"``. ``mesh``
+        (``parallel.make_mesh``) shards each chunk's pages over its data
+        axis: ``batch_pages`` rounds up to a multiple of the data-axis size,
+        and each device of the data axis gets an eval-mode copy of both
+        models. The count program of the auto capacity and ``calibrate``
+        stay on the detector's own device."""
         if mode not in ("greedy", "beam"):
             raise ValueError(f"Unknown mode: {mode}")
         if max_words != "auto" and not isinstance(max_words, int):
@@ -134,7 +175,16 @@ class FusedOCR:
         self.alpha = alpha
         self.temperature = temperature
         self.min_text_size = min_text_size
-        self.batch_pages = max(1, batch_pages)
+        self.device = detector.device
+        if mesh is None:  # the wrappers' own models on their device
+            self.mesh = one_device_mesh(self.device)
+            self._replicas = [(detector.model, recognizer.model)]
+        else:
+            self.mesh = mesh
+            self._replicas = list(zip(replicate(detector.model, mesh),
+                                      replicate(recognizer.model, mesh)))
+        n_data = self.mesh.shape[DATA_AXIS]
+        self.batch_pages = max(n_data, -(-batch_pages // n_data) * n_data)
         self.crop_scale = crop_scale
         self.crop_source = "device" if crop_scale > 1 else crop_source
         self._orig_max_boxes = detector.max_boxes
@@ -144,7 +194,6 @@ class FusedOCR:
         # thread launches at a time and the launch counters stay exact
         self._launch_lock = threading.Lock()
         self._warmed_buckets: set = set()
-        self.device = detector.device
         self.last_dropped = 0
         self.last_overflow = 0  # words over capacity on the last overflowing page
         self.last_timings: Dict[str, float] = {}  # the last chunk's host-clock stage seconds
@@ -163,13 +212,45 @@ class FusedOCR:
     def _upload(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self.device, non_blocking=True)
 
+    @property
+    def _grouped(self) -> bool:
+        """A mesh over several processes."""
+        return self.mesh.group is not None
+
+    def _launch(self, fn, *host):
+        """``fn(detector model, recognizer model, *device tensors)`` → a
+        tuple of tensors with a leading page axis, launched on the host
+        tensors ``host`` (page axis first; None passes through) and their
+        results' copy started: on each slice of the pages this process
+        computes, on the slice's device with its models (without a mesh, the
+        whole chunk on the pipeline's device with the wrappers' own); under
+        a process group the outputs are then gathered from every rank."""
+        parts = []
+        for (_, dev), (det_model, rec_model), piece in zip(
+                self.mesh.local_shards, self._replicas, shard_batch(host, self.mesh)):
+            with on_device(dev):
+                outs = fn(det_model, rec_model, *piece)
+                if self._grouped:
+                    outs = [all_gather_rows(o, self.mesh) for o in outs]
+                parts.append(_Pending(*outs))
+        return _Gathered(parts)
+
+    def _computes_page(self, i: int, b: int) -> bool:
+        """Whether this process computes page ``i`` of a chunk of ``b``: every
+        page in one process, the rank's slice under a process group."""
+        if not self._grouped:
+            return True
+        rows = rank_rows(b, self.mesh)
+        return rows.start <= i < rows.stop
+
     # ---- phase A -------------------------------------------------------------
 
-    def _detect(self, pages: torch.Tensor, scale_x, scale_y) -> torch.Tensor:
+    def _detect(self, pages: torch.Tensor, scale_x, scale_y, model=None) -> torch.Tensor:
         """Phase A on (B, target, target, 3) uint8 pages on the device → boxes9
         (B, max_boxes, 9), score −1 on invalid rows; ``scale_x``/``scale_y``
-        are (B,) page/target ratios."""
-        score, geo = self.detector.maps(pages)
+        are (B,) page/target ratios; ``model`` a copy of the detector's model
+        (its own by default)."""
+        score, geo = self.detector.maps(pages, model)
         return self._boxes(score, geo, self.detector.score_thresh, scale_x, scale_y)
 
     def _boxes(self, score, geo, score_thresh, scale_x, scale_y) -> torch.Tensor:
@@ -213,7 +294,10 @@ class FusedOCR:
             score.expand(n, -1, -1), geo.expand(n, -1, -1, -1),
             torch.tensor(thresholds, dtype=torch.float32), scale_x, scale_y,
         )
-        return self._box_extents(boxes9)[1].sum(dim=1).cpu().numpy().astype(int)
+        counts = self._box_extents(boxes9)[1].sum(dim=1)
+        if self._grouped:  # every rank sizes the capacity alike
+            broadcast_([counts], self.mesh)
+        return counts.cpu().numpy().astype(int)
 
     def calibrate(
         self,
@@ -300,15 +384,19 @@ class FusedOCR:
 
     def _prepare_chunk(self, chunk) -> tuple:
         """Stage 1 (prep thread): read and resize up to ``batch_pages``
-        pages into one host buffer (and the ``crop_scale`` copies)."""
+        pages into one host buffer (and the ``crop_scale`` copies). With a
+        mesh the last page repeats up to a multiple of the data axis;
+        ``timings["pages"]`` counts the chunk's own pages."""
         t0 = time.perf_counter()
         det = self.detector
         imgs = [read_image(im) for im in chunk]
+        n = len(imgs)
+        imgs += imgs[-1:] * ((-n) % self.mesh.shape[DATA_AXIS])
         pages = self._host_pages(imgs, det.target_size)
         hi = self._host_pages(imgs, self.crop_scale * det.target_size) if self.crop_scale > 1 else None
         sx = np.array([img.shape[1] / det.target_size for img in imgs], np.float32)
         sy = np.array([img.shape[0] / det.target_size for img in imgs], np.float32)
-        timings = {"pages": len(imgs), "prep": time.perf_counter() - t0}
+        timings = {"pages": n, "prep": time.perf_counter() - t0}
         return imgs, pages, hi, sx, sy, timings
 
     @torch.inference_mode()
@@ -319,11 +407,8 @@ class FusedOCR:
         self._resolve_capacity(pages[0], float(sx[0]), float(sy[0]))
         t0 = time.perf_counter()
         with annotate("fused.phase_a"):
-            boxes9 = self._detect(
-                self._upload(pages), torch.from_numpy(sx).to(self.device),
-                torch.from_numpy(sy).to(self.device),
-            )
-            pending = _Pending(boxes9)
+            pending = self._launch(lambda det_model, _, p, x, y: (self._detect(p, x, y, det_model),),
+                                   pages, torch.from_numpy(sx), torch.from_numpy(sy))
         timings["detect"] = time.perf_counter() - t0
         return imgs, pending, timings
 
@@ -357,7 +442,8 @@ class FusedOCR:
             rows = rows_all[i][:nw]
             dropped = max(dropped, len(rows_all[i]) - len(rows))
             rows_used.append(rows)
-            self._native_strip(out[i], img, boxes[i], rows)
+            if self._computes_page(i, len(imgs)):
+                self._native_strip(out[i], img, boxes[i], rows)
         timings["crops"], timings["slots"] = time.perf_counter() - t0, nw
         return imgs, list(boxes), rows_used, strip, nw, dropped, timings
 
@@ -373,10 +459,10 @@ class FusedOCR:
         t0 = time.perf_counter()
         rec = self.recognizer
         with annotate("fused.phase_b"):
-            x = self._upload(strip).reshape(-1, rec.img_h, rec.img_w, 3)
-            pending = _Pending(*rec.recognize_tensor(
-                x, self.mode, self.beam_size, self.alpha, self.temperature
-            ))
+            pending = self._launch(lambda _, rec_model, s: rec.recognize_tensor(
+                s.reshape(-1, rec.img_h, rec.img_w, 3), self.mode, self.beam_size, self.alpha,
+                self.temperature, rec_model,
+            ), strip)
         timings["recognize"] = time.perf_counter() - t0
         return imgs, boxes, rows_used, pending, nw, timings
 
@@ -387,7 +473,7 @@ class FusedOCR:
         t0 = time.perf_counter()
         preds, confs = pending.wait()
         pages = []
-        for i in range(len(imgs)):
+        for i in range(timings["pages"]):
             src_idx = np.full(nw, -1, np.int64)
             src_idx[: len(rows_used[i])] = rows_used[i]
             pages.append(self._page_or_vis(imgs[i], self._build_page_result(
@@ -398,12 +484,14 @@ class FusedOCR:
 
     # ---- the one-program path (device crops) -----------------------------------
 
-    def _page_program(self, pages, pages_hi, scale_x, scale_y) -> tuple:
+    def _page_program(self, pages, pages_hi, scale_x, scale_y, det_model=None,
+                      rec_model=None) -> tuple:
         """Phase A, word selection, device crops and phase B for a chunk →
         (boxes9 (B, nb, 9), confs (B, nw), token ids (B, nw, steps), src_idx
-        (B, nw) with −1 on unused slots, eligible counts (B,))."""
+        (B, nw) with −1 on unused slots, eligible counts (B,)); the models
+        are copies of the wrappers' (their own by default)."""
         rec = self.recognizer
-        boxes9 = self._detect(pages, scale_x, scale_y)
+        boxes9 = self._detect(pages, scale_x, scale_y, det_model)
         b, nb = boxes9.shape[:2]
         nw = self.max_words
         dev = boxes9.device
@@ -435,7 +523,7 @@ class FusedOCR:
             for i in range(b)
         ])
         preds, confs = rec.recognize_tensor(
-            crops, self.mode, self.beam_size, self.alpha, self.temperature
+            crops, self.mode, self.beam_size, self.alpha, self.temperature, rec_model
         )
         return (
             boxes9, confs.reshape(b, nw), preds.reshape(b, nw, -1),
@@ -451,11 +539,11 @@ class FusedOCR:
         t0 = time.perf_counter()
         nw = self.max_words
         with annotate("fused.page_program"):
-            outs = self._page_program(
-                self._upload(pages), None if hi is None else self._upload(hi),
-                torch.from_numpy(sx).to(self.device), torch.from_numpy(sy).to(self.device),
+            pending = self._launch(
+                lambda det_model, rec_model, p, h, x, y: self._page_program(
+                    p, h, x, y, det_model, rec_model),
+                pages, hi, torch.from_numpy(sx), torch.from_numpy(sy),
             )
-            pending = _Pending(*outs)
         timings["dispatch"], timings["slots"] = time.perf_counter() - t0, nw
         return imgs, pending, nw, timings
 
@@ -464,7 +552,8 @@ class FusedOCR:
         pages; a page that overflowed an auto capacity runs again."""
         t0 = time.perf_counter()
         outs = pending.wait()
-        pages = [self._finish(img, [o[i] for o in outs], nw, vis) for i, img in enumerate(imgs)]
+        pages = [self._finish(img, [o[i] for o in outs], nw, vis)
+                 for i, img in enumerate(imgs[:timings["pages"]])]
         timings["finish"] = time.perf_counter() - t0
         return pages
 
@@ -526,15 +615,19 @@ class FusedOCR:
         )
         return confs, preds
 
-    def predict(self, image, vis: bool = False):
-        """One page: the chunk stages, one after another, on a chunk of one →
-        Page, or (Page, PIL image) with ``vis``."""
-        prep = self._prepare_chunk([image])
+    def _run_chunk(self, prep, vis: bool = False) -> List[Any]:
+        """A prepared chunk's stages, one after another on this thread."""
         if self.crop_source == "native":
             rec = self._dispatch_rec_chunk(self._crop_stage(*self._dispatch_detect_prepared(prep)))
-            page = self._finish_rec_chunk(rec, vis)[0]
-        else:
-            page = self._finish_chunk(*self._dispatch_prepared(prep), vis=vis)[0]
+            return self._finish_rec_chunk(rec, vis)
+        return self._finish_chunk(*self._dispatch_prepared(prep), vis=vis)
+
+    def predict(self, image, vis: bool = False):
+        """One page: the chunk stages, one after another, on a chunk of one →
+        Page, or (Page, PIL image) with ``vis``. Under a process group every
+        rank calls it with the same page."""
+        prep = self._prepare_chunk([image])
+        page = self._run_chunk(prep, vis)[0]
         self.last_timings = prep[-1]
         self.chunk_timings = [prep[-1]]
         return page
@@ -609,8 +702,15 @@ class FusedOCR:
         if not chunks:
             return []
         timings: List[Dict[str, float]] = []
-        run = self._predict_many_native if self.crop_source == "native" else self._predict_many_device
-        results = run(chunks, queue_depth, timings, vis)
+        if self._grouped:  # every rank launches its collectives in the same order
+            results = []
+            for chunk in chunks:
+                prep = self._prepare_chunk(chunk)
+                timings.append(prep[-1])
+                results.extend(self._run_chunk(prep, vis))
+        else:
+            run = self._predict_many_native if self.crop_source == "native" else self._predict_many_device
+            results = run(chunks, queue_depth, timings, vis)
         self.chunk_timings, self.last_timings = timings, timings[-1]
         return results
 
@@ -620,10 +720,13 @@ class FusedOCR:
         """Begin a batch: host prep and the first device launch now, the
         rest in ``finish_batch``. One start/finish pair per batch, FIFO; a
         batch larger than ``batch_pages`` is split into chunks. Start and
-        finish may be called from two threads: their launches take turns."""
+        finish may be called from two threads: their launches take turns.
+        Under a process group start only prepares, and finish launches."""
         if len(images) > self.batch_pages:
             return ("multi", [self.start_batch(c) for c in self._chunks(images)])
         prep = self._prepare_chunk(images)
+        if self._grouped:
+            return ("prepared", prep)
         with self._launch_lock:
             if self.crop_source == "native":
                 return ("native", self._dispatch_detect_prepared(prep))
@@ -635,6 +738,9 @@ class FusedOCR:
         kind, payload = handle
         if kind == "multi":
             return [page for sub in payload for page in self.finish_batch(sub)]
+        if kind == "prepared":
+            with self._launch_lock:
+                return self._run_chunk(payload)
         if kind == "native":
             crops = self._crop_stage(*payload)
             with self._launch_lock:
@@ -665,13 +771,19 @@ class FusedOCR:
         if not targets:
             return None
         rec = self.recognizer
+        # each copy of the model sees slices of up to batch_pages / data pages
+        copies = [(dev, m) for (_, dev), (_, m) in zip(self.mesh.local_shards, self._replicas)]
+        per_slice = self.batch_pages // self.mesh.shape[DATA_AXIS]
         with self._launch_lock, torch.inference_mode():
             for nw in targets:
-                for pages in range(1, self.batch_pages + 1):
-                    strip = torch.full((pages * nw, rec.img_h, rec.img_w, 3), 255,
-                                       dtype=torch.uint8, device=self.device)
-                    _Pending(*rec.recognize_tensor(
-                        strip, self.mode, self.beam_size, self.alpha, self.temperature
-                    )).wait()
+                for dev, model in copies:
+                    with on_device(dev):
+                        for pages in range(1, per_slice + 1):
+                            strip = torch.full((pages * nw, rec.img_h, rec.img_w, 3), 255,
+                                               dtype=torch.uint8, device=dev)
+                            _Pending(*rec.recognize_tensor(
+                                strip, self.mode, self.beam_size, self.alpha, self.temperature,
+                                model,
+                            )).wait()
                 self._warmed_buckets.add(nw)
         return targets

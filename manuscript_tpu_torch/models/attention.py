@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.attention_step import attention_step
-from .layers import dropout
+from .layers import dropout, float32_or_wider, rand_rows
 from .rnn import lstm_cell_step
 
 NEG_INF = -1e30
@@ -113,7 +113,7 @@ class AttentionDecoder(nn.Module):
         (B, steps) int with SOS at step 0. Dropout and scheduled sampling act
         in train mode only; their draws come from ``generator``."""
         b, steps = text_in.shape
-        enc = enc.float()
+        enc = float32_or_wider(enc)
         proj_enc = enc @ self.i2h_kernel
         text_in = text_in.long()
         use_ss = self.training and ss_prob > 0.0
@@ -124,7 +124,7 @@ class AttentionDecoder(nn.Module):
         for t in range(steps):
             tok = text_in[:, t]
             if use_ss and t > 0:  # step 0 consumes SOS: never sampled
-                coin = torch.rand(b, generator=generator, device=enc.device) < ss_prob
+                coin = rand_rows((b,), generator, enc.device) < ss_prob
                 tok = torch.where(coin, prev, tok)
             h, c = self._cell(h, c, enc, proj_enc, tok, generator)
             if use_ss:

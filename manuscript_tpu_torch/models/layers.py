@@ -2,12 +2,15 @@
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import sum_over_ranks
 
 
 class BatchNorm(nn.Module):
@@ -25,12 +28,18 @@ class BatchNorm(nn.Module):
     the train path is written here. The variance is the mean of (x − mean)²;
     flax takes it as E[x²] − E[x]², which cancels in float32 where a channel's
     mean dwarfs its spread and then moves the gradients by up to several % of
-    a leaf's largest entry (tests/test_torch_train_east.py)."""
+    a leaf's largest entry (tests/test_torch_train_east.py).
+
+    With a process ``group`` (``sync_batch_stats``; data-parallel training)
+    the statistics are those of the global batch, as under the JAX
+    package's GSPMD: two differentiable all-reduces, first of the per-channel
+    sums and the element count, then of the sums of (x − mean)²."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
         self.update_stats = True
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -44,10 +53,17 @@ class BatchNorm(nn.Module):
             )
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        xf = x.float()
-        mean = xf.mean(dims)
-        xc = xf - mean.view(shape)
-        var = xc.square().mean(dims)
+        xf = float32_or_wider(x)
+        if self.group is None:
+            mean = xf.mean(dims)
+            xc = xf - mean.view(shape)
+            var = xc.square().mean(dims)
+        else:
+            count = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+            sums = sum_over_ranks(torch.cat([xf.sum(dims), count]), self.group)
+            mean = sums[:-1] / sums[-1]
+            xc = xf - mean.view(shape)
+            var = sum_over_ranks(xc.square().sum(dims), self.group) / sums[-1]
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -56,6 +72,12 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = xc * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+def float32_or_wider(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when it is float64 (a model cast to
+    float64 computes in float64 throughout)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 @contextmanager
@@ -73,6 +95,43 @@ def frozen_batch_stats(model: nn.Module):
             m.update_stats = s
 
 
+def sync_batch_stats(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` takes its train-mode statistics over
+    the ranks of ``group`` (None: over its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
+_DRAWS = threading.local()
+
+
+@contextmanager
+def global_draws(rank: int, world: int):
+    """Inside: each random draw of a training forward (``rand_rows``) is
+    made for a global batch of ``world`` equal slices and cut to slice
+    ``rank``, this process's rows. With one generator seed on every rank,
+    each row then gets the draw one device makes for it on the whole batch."""
+    saved = getattr(_DRAWS, "slice", None)
+    _DRAWS.slice = (rank, world)
+    try:
+        yield
+    finally:
+        _DRAWS.slice = saved
+
+
+def rand_rows(shape: Sequence[int], generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """``torch.rand(shape)`` of a batch whose leading axis is the rows,
+    drawn for the global batch inside ``global_draws``."""
+    rank, world = getattr(_DRAWS, "slice", None) or (0, 1)
+    if world == 1:
+        return torch.rand(tuple(shape), generator=generator, device=device)
+    b = shape[0]
+    full = torch.rand((b * world, *shape[1:]), generator=generator, device=device)
+    return full[rank * b:(rank + 1) * b]
+
+
 def dropout(
     x: torch.Tensor,
     p: float,
@@ -86,7 +145,7 @@ def dropout(
         return x
     keep = 1.0 - p
     shape = tuple(mask_shape) if mask_shape is not None else x.shape
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from .attention import AttentionDecoder
-from .layers import dropout
+from .layers import dropout, float32_or_wider
 from .rnn import BiLSTM
 from .seresnet31 import SEResNet31
 
@@ -95,7 +95,7 @@ class TRBAModel(nn.Module):
         scheduled sampling in train mode."""
         enc = self.encode(x, generator)
         with _no_autocast(enc):
-            return self.decoder(enc.float(), text_in, ss_prob, generator)
+            return self.decoder(float32_or_wider(enc), text_in, ss_prob, generator)
 
     def greedy(self, x, max_len: int = 25):
         enc = self.encode(x)

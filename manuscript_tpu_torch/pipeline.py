@@ -83,6 +83,7 @@ class Pipeline:
         batch_pages: int = 4,
         crop_scale: int = 1,
         crop_source: str = "native",
+        mesh=None,
     ):
         """``detector``/``recognizer`` default to ``EAST()``/``TRBA()`` on
         ``device`` (which need weights); given ones that carry a ``device``
@@ -98,7 +99,9 @@ class Pipeline:
         "native" (crops from the full-resolution page on the host) or
         "device" (crops gathered on the device from the detector's copy);
         ``crop_scale=k`` crops from a (k·target)² copy on the device
-        instead."""
+        instead. ``mesh`` (``parallel.make_mesh``) shards the fused route's
+        pages over the mesh's data axis (``FusedOCR``); ``batch_pages`` then
+        rounds up to a multiple of its size."""
         self.device = resolve_device(device)
         if detector is None:
             from .detectors import EAST
@@ -127,14 +130,15 @@ class Pipeline:
                     detector, recognizer, max_words=max_words, mode=mode,
                     beam_size=beam_size, alpha=alpha, temperature=temperature,
                     min_text_size=min_text_size, batch_pages=batch_pages,
-                    crop_scale=crop_scale, crop_source=crop_source,
+                    crop_scale=crop_scale, crop_source=crop_source, mesh=mesh,
                 )
             elif fused is True:
                 raise ValueError(
                     "fused=True needs the port's EAST + TRBA components "
                     "(duck-typed detector/recognizer can't be fused)."
                 )
-        # the chunk size a serving layer should coalesce to
+        # the chunk size a serving layer should coalesce to (rounded up to
+        # the mesh's data axis on the fused route)
         self.batch_pages = self._fused.batch_pages if self._fused is not None else batch_pages
 
     @staticmethod

@@ -202,17 +202,20 @@ class TRBA:
         beam_size: int = 8,
         alpha: float = 0.9,
         temperature: float = 1.7,
+        model: Optional[TRBAModel] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, img_h, img_w, 3) uint8 crops on the model's device → (token ids
         (N, steps), confidences (N,)) on that device, enqueued on the current
-        stream and not waited for."""
+        stream and not waited for. ``model``: a copy of the wrapper's model
+        on the crops' device (a mesh's replica), else the wrapper's own."""
         if mode not in ("greedy", "beam"):
             raise ValueError(f"Unknown mode: {mode}")
+        model = self.model if model is None else model
         x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
         if mode == "greedy":
-            logits, preds = self.model.greedy(x, self.max_length)
+            logits, preds = model.greedy(x, self.max_length)
         else:
-            logits, preds = self.model.beam(x, self.max_length, beam_size, alpha, temperature)
+            logits, preds = model.beam(x, self.max_length, beam_size, alpha, temperature)
         return sequence_confidence(logits, preds, self.eos_id)
 
     def recognize_u8(

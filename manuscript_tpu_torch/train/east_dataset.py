@@ -38,7 +38,7 @@ import queue
 import threading
 import warnings
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -517,15 +517,20 @@ def batch_iterator(
     drop_last: bool = False,
     num_threads: int = 4,
     include_quads: bool = False,
+    select: Optional[Callable[[list], list]] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Batches {"image" (B, S, S, 3) u8, "score" (B, h, w), "geo" (B, h, w,
-    8)} (and "quads" with ``include_quads``), built by a prefetching thread."""
+    8)} (and "quads" with ``include_quads``), built by a prefetching thread.
+    ``select`` maps each batch's sample indices to those that are loaded
+    (a data-parallel rank's own rows)."""
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
     chunks = [order[i : i + batch_size] for i in range(0, len(order), batch_size)]
     if drop_last:
         chunks = [c for c in chunks if len(c) == batch_size]
+    if select is not None:
+        chunks = [select(list(c)) for c in chunks]
 
     q: "queue.Queue" = queue.Queue(maxsize=max(2, num_threads))
     sentinel = object()

@@ -36,8 +36,20 @@ state file resumes its weights, EMA and counters and keeps a fresh optimizer
 state (``EASTTrainState.load``). TensorBoard gets the scalars and, each
 validation, the collage of ``utils/visualize.create_collage`` for sample 0
 of the first validation batch (the EMA weights' prediction when
-``use_ema``). ``device=None`` is the card; ``n_devices`` or ``mesh`` asking
-for more than one device raises.
+``use_ema``). ``device=None`` is the card.
+
+Data parallelism (``n_devices`` > 1, a ``mesh``, or an initialised process
+group) runs one process per data row, as ``trba_train`` does: the weights
+broadcast from rank 0 at the start and after a resume; each rank's slice of
+each global batch (padded to a multiple of the ranks by tiling its rows, as
+the JAX trainer pads), with ``DeviceDataset`` gathering the rank's rows on
+its card and the streamed path reading, augmenting and resizing only them
+(the host augmentation streams seeded from (seed, rank), so they differ from
+a one-device run's by design); BatchNorm's statistics,
+every numerator and denominator of the loss and of the soft dice, the
+gradients (both of SAM's passes) global; rank 0 writes the checkpoints and
+TensorBoard, behind a barrier after each epoch. Each epoch's log holds
+``host_s``, the seconds this process waited for its training batches.
 """
 
 from __future__ import annotations
@@ -52,7 +64,18 @@ import torch
 import torch.nn.functional as F
 
 from ..models.east import EASTModel
+from ..models.layers import sync_batch_stats
 from ..ops.image import resize_u8
+from ..parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    barrier,
+    broadcast_,
+    rank_items,
+    rank_rows,
+    spawn,
+    tile_rows,
+)
 from ..utils.device import resolve_device
 from ..utils.profiling import annotate
 from ..utils.weights import (
@@ -66,7 +89,14 @@ from .checkpoints import restore_tree
 from .east_dataset import ConcatDataset, EASTDataset, batch_iterator
 from .losses import east_loss, soft_dice_coefficient
 from .optim import apply_updates, build_east_optimizer, ema_update, gradients, sam_gradient
-from .trba_train import guard_finite, normalize, single_device_only
+from .trba_train import (
+    data_parallel_mesh,
+    guard_finite,
+    normalize,
+    one_rank_per_row,
+    rank_seed,
+    timed,
+)
 
 MULTISCALE_FACTORS = (0.8, 0.9, 1.0, 1.1, 1.2)
 
@@ -81,13 +111,15 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def device_color_jitter(img: torch.Tensor, generator: torch.Generator,
                         brightness: float = 0.5, contrast: float = 0.5,
-                        saturation: float = 0.5) -> torch.Tensor:
+                        saturation: float = 0.5, rows=None) -> torch.Tensor:
     """Per-sample brightness, contrast and saturation of (B, H, W, 3) float
-    images on their device (``color_jitter`` without the hue rotation)."""
-    shape = (img.shape[0], 1, 1, 1)
+    images on their device (``color_jitter`` without the hue rotation).
+    ``rows`` = (slice, n): ``img`` holds those rows of a batch of n, whose
+    factors are drawn for all n."""
+    rows, n = rows or (slice(None), img.shape[0])
 
     def factor(r):
-        u = torch.rand(shape, generator=generator, device=img.device)
+        u = torch.rand((n, 1, 1, 1), generator=generator, device=img.device)[rows]
         return (1 - r) + 2 * r * u
 
     out = img * factor(brightness)
@@ -101,9 +133,13 @@ class DeviceDataset:
     """A dataset resident on the card: its (image u8, score, geometry)
     arrays, rasterized without host augmentation, are uploaded once; a batch
     is a gather by index, the photometric jitter (when ``augment``) and the
-    resize to ``side``, all on the device."""
+    resize to ``side``, all on the device. With a ``mesh`` (one process per
+    data row) the indices repeat from the first up to a multiple of the data
+    axis and the rank gathers its slice of them; the jitter's factors are
+    drawn for the whole batch, so each row gets the one-device draw."""
 
-    def __init__(self, dataset, device: torch.device, augment: bool, seed: int = 0):
+    def __init__(self, dataset, device: torch.device, augment: bool, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         subs = getattr(dataset, "datasets", [dataset])
         saved = [getattr(d, "augment", False) for d in subs]
         for d in subs:
@@ -119,6 +155,7 @@ class DeviceDataset:
         self.geos = torch.from_numpy(np.stack([it[2] for it in items])).to(device)
         self.augment = augment
         self.seed = seed
+        self.mesh = mesh
         self.base_side = int(self.images.shape[1])
 
     def __len__(self) -> int:
@@ -127,13 +164,18 @@ class DeviceDataset:
     def batch(self, idx, side: Optional[int] = None, step: int = 0):
         """(image u8 (B, side, side, 3), score, geometry) of samples ``idx``."""
         side = side or self.base_side
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        im = self.images[idx].float()
+        idx = np.asarray(idx, np.int64)
+        rows = slice(0, len(idx))
+        if self.mesh is not None:
+            idx = tile_rows({"i": idx}, self.mesh.shape[DATA_AXIS])["i"]
+            rows = rank_rows(len(idx), self.mesh)
+        im = self.images[torch.as_tensor(idx[rows], device=self.device)].float()
         if self.augment:
             gen = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + step)
-            im = device_color_jitter(im, gen)
+            im = device_color_jitter(im, gen, rows=(rows, len(idx)))
         if side != self.base_side:
             im = resize_bilinear(im.permute(0, 3, 1, 2), side, side).permute(0, 2, 3, 1)
+        idx = torch.as_tensor(idx[rows], device=self.device)
         return im.clamp(0.0, 255.0).to(torch.uint8), self.scores[idx], self.geos[idx]
 
 
@@ -215,8 +257,10 @@ class EASTTrainState:
 
 
 def east_train_loss(model: EASTModel, image_u8, gt_score, gt_geo, use_ohem: bool,
-                    ohem_ratio: float, use_focal_geo: bool, focal_gamma: float) -> torch.Tensor:
-    """The training loss of one batch, in the model's current mode and its
+                    ohem_ratio: float, use_focal_geo: bool, focal_gamma: float,
+                    group=None) -> torch.Tensor:
+    """The training loss of one batch (with a process ``group``, of the
+    global batch whose slice this is), in the model's current mode and its
     parameters' dtype."""
     out = model(normalize(image_u8, next(model.parameters()).dtype))
     pred_score, pred_geo = out["score"][..., 0], out["geometry"]
@@ -225,31 +269,34 @@ def east_train_loss(model: EASTModel, image_u8, gt_score, gt_geo, use_ohem: bool
         pred_score = resize_bilinear(pred_score[:, None], gh, gw)[:, 0]
         pred_geo = resize_bilinear(pred_geo.permute(0, 3, 1, 2), gh, gw).permute(0, 2, 3, 1)
     return east_loss(gt_score, pred_score, gt_geo, pred_geo, use_ohem=use_ohem,
-                     ohem_ratio=ohem_ratio, use_focal_geo=use_focal_geo, focal_gamma=focal_gamma)
+                     ohem_ratio=ohem_ratio, use_focal_geo=use_focal_geo, focal_gamma=focal_gamma,
+                     group=group)
 
 
 def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], image, score, geo,
                use_sam: bool = True, sam_adaptive: bool = True, use_ohem: bool = True,
                ohem_ratio: float = 0.5, use_focal_geo: bool = True, focal_gamma: float = 2.0,
-               ema_decay: float = 0.999) -> torch.Tensor:
+               ema_decay: float = 0.999, group=None) -> torch.Tensor:
     """One optimizer step in place on ``state`` → the loss (at the perturbed
-    point under SAM), on the device. Profiler regions: SAM's
-    ``sam.first_pass`` and ``sam.second_pass`` (``east.gradient`` without
-    SAM), then ``east.update``."""
+    point under SAM), on the device. With a process ``group`` the batch is
+    this rank's slice and the loss and gradients are the global batch's (the
+    model's BatchNorms synchronised by ``models.layers.sync_batch_stats``).
+    Profiler regions: SAM's ``sam.first_pass`` and ``sam.second_pass``
+    (``east.gradient`` without SAM), then ``east.update``."""
     model = state.model
     model.train()
     loss_fn = lambda: east_train_loss(model, image, score, geo, use_ohem, ohem_ratio,
-                                      use_focal_geo, focal_gamma)
+                                      use_focal_geo, focal_gamma, group)
     if use_sam:
         named = dict(model.named_parameters())
         loss, g_all = sam_gradient(loss_fn, named.values(), rho=0.05, adaptive=sam_adaptive,
-                                   model=model)
+                                   model=model, group=group)
         g_all = dict(zip(named, g_all))
         grads = {k: g_all[k] for k in trainable}
     else:
         with annotate("east.gradient"):
             loss = loss_fn()
-            grads = dict(zip(trainable, gradients(loss, list(trainable.values()))))
+            grads = dict(zip(trainable, gradients(loss, list(trainable.values()), group)))
     with annotate("east.update"):
         grads = guard_finite(loss, grads)
         updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
@@ -259,14 +306,15 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
     return loss.detach()
 
 
-def eval_step(model: EASTModel, image, score, geo):
+def eval_step(model: EASTModel, image, score, geo, group=None):
     """(loss, soft dice, predicted score (B, h, w), predicted geometry
-    (B, h, w, 8)) of a validation batch in eval mode."""
+    (B, h, w, 8)) of a validation batch in eval mode; the loss and the dice
+    of the global batch with a process ``group``."""
     model.eval()
     out = model(normalize(image))
     pred_score = out["score"][..., 0]
-    return (east_loss(score, pred_score, geo, out["geometry"]),
-            soft_dice_coefficient(score, pred_score), pred_score, out["geometry"])
+    return (east_loss(score, pred_score, geo, out["geometry"], group=group),
+            soft_dice_coefficient(score, pred_score, group), pred_score, out["geometry"])
 
 
 @contextmanager
@@ -315,6 +363,15 @@ def _resolve_resume_path(resume_from: Union[str, Path]) -> Optional[Path]:
     return None
 
 
+def _rank_main(mesh: Mesh, args: tuple, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    out = train(*args, **kwargs, mesh=mesh)
+    sync_batch_stats(out["model"], None)  # the group ends with this process
+    out["model"] = out["model"].cpu()
+    out["ema_params"] = None if out["ema_params"] is None else {
+        k: v.cpu() for k, v in out["ema_params"].items()}
+    return out
+
+
 def train(
     train_images: Union[str, Path, Sequence],
     train_anns: Union[str, Path, Sequence],
@@ -354,18 +411,32 @@ def train(
     seed: int = 0,
 ) -> Dict[str, Any]:
     """High-level EAST training → {"model", "ema_params", "best_val_loss",
-    "exp_dir", "history"}. ``device=None`` is the card.
+    "exp_dir", "history"}. ``device=None`` is the card; ``n_devices`` or
+    ``mesh`` train data-parallel (module docstring).
     ``pretrained_backbone`` is accepted and ignored, as in the JAX package
     (nothing is downloaded)."""
-    single_device_only(n_devices, mesh)
-    dev = resolve_device(device)
+    mesh = data_parallel_mesh(n_devices, mesh, device)
+    if mesh is not None and mesh.group is None and mesh.shape[DATA_AXIS] > 1:
+        kwargs = {k: v for k, v in locals().items()
+                  if k not in ("train_images", "train_anns", "val_images", "val_anns", "mesh",
+                               "n_devices", "device")}
+        out = spawn(_rank_main, one_rank_per_row(mesh),
+                    (train_images, train_anns, val_images, val_anns), kwargs)
+        first = mesh.devices[0, 0]
+        out["model"] = out["model"].to(first)
+        if out["ema_params"] is not None:
+            out["ema_params"] = {k: v.to(first) for k, v in out["ema_params"].items()}
+        return out
+    group = None if mesh is None else mesh.group
+    lead = mesh is None or mesh.rank == 0  # writes the files
+    dev = resolve_device(device) if mesh is None else mesh.local_shards[0][1]
     score_geo_scale = score_geo_scale or 0.25
     exp_dir = Path(experiment_root) / model_name
     ckpt_dir = exp_dir / "checkpoints"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     train_sets = [EASTDataset(im, an, target_size=target_size, score_geo_scale=score_geo_scale,
-                              augment=True, seed=seed + i)
+                              augment=True, seed=rank_seed(seed, mesh) + i)
                   for i, (im, an) in enumerate(zip(_as_list(train_images), _as_list(train_anns)))]
     val_sets = [EASTDataset(im, an, target_size=target_size, score_geo_scale=score_geo_scale,
                             augment=False)
@@ -374,6 +445,7 @@ def train(
     steps_per_epoch = max(1, len(train_ds) // batch_size)
 
     model = init_random_(EASTModel(backbone), seed).to(dev)
+    sync_batch_stats(model, group)
     tx, schedule = build_east_optimizer(lr, steps_per_epoch, use_sam=use_sam,
                                         use_lookahead=use_lookahead, grad_clip=grad_clip)
     mask = freeze_mask(model, freeze_first)
@@ -392,14 +464,17 @@ def train(
             print(f"[EAST.train] resumed from {rp} at epoch {state.epoch}")
         else:
             print(f"[EAST.train] resume requested but no state found at {resume_from}")
+    if mesh is not None:  # every rank starts from rank 0's weights and EMA
+        broadcast_(list(model.state_dict().values())
+                   + ([] if state.ema is None else list(state.ema.values())), mesh)
 
     dev_train = dev_vals = None
     if cache_device:
-        dev_train = DeviceDataset(train_ds, dev, augment=True, seed=seed)
-        dev_vals = [DeviceDataset(vs, dev, augment=False) for vs in val_sets]
+        dev_train = DeviceDataset(train_ds, dev, augment=True, seed=seed, mesh=mesh)
+        dev_vals = [DeviceDataset(vs, dev, augment=False, mesh=mesh) for vs in val_sets]
 
     writer = None
-    if log_tensorboard:
+    if log_tensorboard and lead:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -409,6 +484,9 @@ def train(
 
     ms_rng = np.random.default_rng(seed)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, non_blocking=True)
+
+    # the streamed path loads this rank's rows of each batch padded to the ranks
+    own_rows = None if mesh is None else (lambda idx: rank_items(idx, mesh))
 
     def host_batch(batch, scale: float = 1.0):
         img = batch["image"]
@@ -426,27 +504,30 @@ def train(
                                       side=_snap32(target_size * scale), step=state.global_step)
         else:
             for batch in batch_iterator(train_ds, batch_size, shuffle=True, seed=seed + epoch,
-                                        drop_last=True):
+                                        drop_last=True, select=own_rows):
                 scale = float(ms_rng.choice(MULTISCALE_FACTORS)) if use_multiscale else 1.0
                 yield host_batch(batch, scale)
 
     def write_last():
+        if not lead:
+            return
         (ckpt_dir / "last.msgpack").write_bytes(msgpack_serialize(state.weights()))
         (ckpt_dir / "last_state.msgpack").write_bytes(state.serialize())
 
     history = []
     for epoch in range(state.epoch, epochs):
         t_epoch = time.time()
-        losses = []
-        for image_b, score_b, geo_b in train_batches(epoch):
+        losses, host_s = [], [0.0]
+        for image_b, score_b, geo_b in timed(train_batches(epoch), host_s):
             losses.append(train_step(state, tx, trainable, image_b, score_b, geo_b, use_sam,
                                      sam_type == "asam", use_ohem, ohem_ratio, use_focal_geo,
-                                     focal_gamma, ema_decay))
+                                     focal_gamma, ema_decay, group))
             state.global_step += 1
         train_loss = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else 0.0
         log = {"epoch": epoch, "train_loss": train_loss,
                "train_losses": [float(v) for v in torch.stack(losses).cpu()] if losses else [],
-               "lr": float(schedule(state.global_step)), "time": time.time() - t_epoch}
+               "lr": float(schedule(state.global_step)), "time": time.time() - t_epoch,
+               "host_s": host_s[0]}
 
         if (epoch + 1) % val_interval == 0 and val_sets:
             val_losses, val_dices = [], []
@@ -459,10 +540,12 @@ def train(
                                    for b in range(0, len(dv), batch_size))
                     else:
                         batches = ((host_batch(b), b) for b in batch_iterator(
-                            vs, batch_size, shuffle=False, drop_last=False, include_quads=True))
+                            vs, batch_size, shuffle=False, drop_last=False, include_quads=True,
+                            select=own_rows))
                     vl, vd = [], []
                     for (img_b, sc_b, geo_b), raw in batches:
-                        loss, dice, pred_score, pred_geo = eval_step(model, img_b, sc_b, geo_b)
+                        loss, dice, pred_score, pred_geo = eval_step(model, img_b, sc_b, geo_b,
+                                                                     group)
                         vl.append(float(loss))
                         vd.append(float(dice))
                         if writer is not None and not collage_logged:
@@ -479,25 +562,29 @@ def train(
             if val_loss < state.best_val_loss:
                 state.best_val_loss = val_loss
                 state.patience = 0
-                (ckpt_dir / "best.msgpack").write_bytes(
-                    msgpack_serialize(state.weights(use_ema=use_ema)))
+                if lead:
+                    (ckpt_dir / "best.msgpack").write_bytes(
+                        msgpack_serialize(state.weights(use_ema=use_ema)))
             else:
                 state.patience += 1
 
         state.epoch = epoch + 1
         if ckpt_interval <= 1 or (epoch + 1) % ckpt_interval == 0 or epoch + 1 == epochs:
             write_last()
+        barrier(mesh)
         if writer is not None:
             for k, v in log.items():
                 if isinstance(v, (int, float)):
                     writer.add_scalar(k, v, epoch)
         history.append(log)
-        print(f"[EAST.train] epoch {epoch}: loss={train_loss:.4f} "
-              + (f"val={log['val_loss']:.4f} " if "val_loss" in log else "")
-              + f"({log['time']:.1f}s)")
+        if lead:
+            print(f"[EAST.train] epoch {epoch}: loss={train_loss:.4f} "
+                  + (f"val={log['val_loss']:.4f} " if "val_loss" in log else "")
+                  + f"({log['time']:.1f}s)")
         if state.patience >= early_stop:
             write_last()  # ckpt_interval may have skipped this epoch
-            print(f"[EAST.train] early stop at epoch {epoch}")
+            if lead:
+                print(f"[EAST.train] early stop at epoch {epoch}")
             break
 
     if writer is not None:

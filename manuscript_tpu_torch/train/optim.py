@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.layers import frozen_batch_stats
+from ..parallel.mesh import average_gradients
 from ..utils.profiling import annotate
 
 Tensors = Dict[str, torch.Tensor]
@@ -243,10 +244,14 @@ def cosine_warm_restarts(
     return join_schedules(schedules, boundaries[:-1])
 
 
-def gradients(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """d loss / d params, zeros for parameters the loss does not reach."""
+def gradients(loss: torch.Tensor, params: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """d loss / d params, zeros for parameters the loss does not reach. With
+    a process ``group`` (data-parallel training; ``loss`` the global batch's,
+    through ``parallel.sum_over_ranks``) the ranks' gradients are averaged,
+    which gives the global batch's gradient on every rank."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return average_gradients([torch.zeros_like(p) if g is None else g
+                              for p, g in zip(params, grads)], group)
 
 
 def sam_gradient(
@@ -255,6 +260,7 @@ def sam_gradient(
     rho: float = 0.05,
     adaptive: bool = True,
     model: Optional[torch.nn.Module] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """SAM (``adaptive=False``) or ASAM → (loss at params + e_w, gradients at
     params + e_w); the caller's optimizer applies them at ``params``.
@@ -264,10 +270,12 @@ def sam_gradient(
     the BatchNorms' running statistics of ``model``; the perturbed pass runs
     under ``frozen_batch_stats`` and leaves them alone. Profiler regions:
     ``sam.first_pass`` (the gradient at ``params`` and the perturbation) and
-    ``sam.second_pass`` (the gradient at the perturbed point, the restore)."""
+    ``sam.second_pass`` (the gradient at the perturbed point, the restore).
+    With a process ``group`` both gradients are the global batch's
+    (``gradients``), so every rank takes the same ε."""
     params = list(params)
     with annotate("sam.first_pass"):
-        g1 = gradients(loss_fn(), params)
+        g1 = gradients(loss_fn(), params, group)
         with torch.no_grad():
             scaled = [torch.abs(p) * g for p, g in zip(params, g1)] if adaptive else g1
             scale = rho / (global_norm(scaled) + 1e-12)
@@ -280,7 +288,7 @@ def sam_gradient(
         try:
             with frozen_batch_stats(model) if model is not None else nullcontext():
                 loss2 = loss_fn()
-                g2 = gradients(loss2, params)
+                g2 = gradients(loss2, params, group)
         finally:
             with torch.no_grad():
                 for p, s in zip(params, saved):

@@ -31,7 +31,31 @@ By design, unlike the JAX trainer: frozen parameters get no update (optax's
 to the weights); the optimizer state in ``last_state.msgpack`` has the
 port's layout, so a JAX state file resumes weights-only, through the same
 tolerant path that a changed optimizer takes; dropout draws come from torch,
-not JAX's streams. ``device=None`` is the card; ``n_devices`` above 1 raises.
+not JAX's streams. ``device=None`` is the card.
+
+Data parallelism (``n_devices`` > 1, a ``mesh``, or a process group already
+initialised, e.g. by ``torchrun``): one process per data row of the mesh
+(``data_parallel_mesh``); called in one process, ``train`` starts them
+(``parallel.spawn``: NCCL among distinct cards, gloo on the CPU with
+``device="cpu"``) and returns rank 0's result. The weights are broadcast
+from rank 0 at the start and after a resume; each rank takes its slice of
+each global batch (a batch that does not divide by the ranks repeats its
+last row, as the JAX trainer pads); BatchNorm's statistics, the loss's
+numerator and denominator and the gradients are the global batch's
+(all-reduces), so every rank takes the one-device step on the global batch,
+up to the order of the sums. Validation batches are padded to a multiple of
+the ranks, decoded per slice and gathered. Rank 0 alone writes the log, the
+CSV, TensorBoard and the checkpoints, and the ranks meet at a barrier after
+each epoch. Dropout and scheduled sampling draw for the global batch from
+one seed on every rank and keep the rank's rows (``models.layers.
+global_draws``), so each row gets the one-device draw, as the JAX trainer
+draws one mask over the global array. Each rank reads, augments and collates
+only its own rows of each training batch, from datasets whose augmentation
+streams are seeded from (seed, rank): the host work of a step divides among
+the ranks, and the augmentations differ from a one-device run's by design
+(the JAX trainer's host builds the whole batch in one process).
+``history`` holds each epoch's ``host_s``, the seconds this process spent
+building its training batches.
 """
 
 from __future__ import annotations
@@ -46,8 +70,23 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..models.layers import float32_or_wider, global_draws, sync_batch_stats
 from ..models.trba import TRBAModel
+from ..parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_gather_rows,
+    barrier,
+    broadcast_,
+    initialize_distributed,
+    launcher_environment,
+    make_mesh,
+    rank_items,
+    shard_batch,
+    spawn,
+)
 from ..recognizers.charset import (
     BLANK_TOKEN,
     EOS_TOKEN,
@@ -78,16 +117,51 @@ from .optim import (
 )
 from .trba_dataset import AugmentParams, OCRDataset, collate_attention, proportional_batches
 
-MESH_NOT_PORTED = (
-    "training on more than one device needs the multi-device mesh, which the "
-    "port does not have yet: ROADMAP.md §1 item 6"
-)
+def data_parallel_mesh(n_devices: Optional[int], mesh: Optional[Mesh],
+                       device: Optional[Union[str, torch.device]]) -> Optional[Mesh]:
+    """The mesh a trainer runs on: ``mesh`` when given; under a process
+    group, one device per rank (a launcher's group, as ``torchrun`` sets it
+    up, is joined here: NCCL, or gloo with ``device="cpu"``); for
+    ``n_devices`` > 1 the first ``n_devices`` cards, or with ``device="cpu"``
+    as many CPU ranks; else None (one device, no mesh)."""
+    if mesh is not None:
+        return mesh
+    if launcher_environment() and not dist.is_initialized():
+        initialize_distributed(backend="gloo" if resolve_device(device).type == "cpu" else "nccl")
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh(n_devices)
+    if n_devices is None or int(n_devices) == 1:
+        return None
+    if resolve_device(device).type == "cpu":
+        return make_mesh(devices=["cpu"] * int(n_devices))
+    return make_mesh(int(n_devices))
 
 
-def single_device_only(n_devices: Optional[int] = None, mesh: Any = None) -> None:
-    """Raise NotImplementedError when more than one device is asked for."""
-    if mesh is not None or (n_devices is not None and int(n_devices) != 1):
-        raise NotImplementedError(MESH_NOT_PORTED)
+def one_rank_per_row(mesh: Mesh) -> Mesh:
+    """The mesh of ``spawn``'s ranks for a one-process ``mesh``: its data
+    rows' first devices (the model axis holds replicas only)."""
+    return make_mesh(devices=list(mesh.devices[:, 0]))
+
+
+RANK_SEED_STRIDE = 1_000_003  # a host augmentation stream's seed: seed + stride · rank
+
+
+def rank_seed(seed: int, mesh: Optional[Mesh]) -> int:
+    """The seed of this process's host augmentation streams."""
+    return int(seed) + RANK_SEED_STRIDE * (0 if mesh is None else mesh.rank)
+
+
+def timed(batches, spent: List[float]):
+    """Yield from ``batches``, adding the seconds each took to build to
+    ``spent[0]``."""
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        spent[0] += time.perf_counter() - t0
+        if item is None:
+            return
+        yield item
 
 
 class Config:
@@ -251,24 +325,36 @@ def train_step(
     lr_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
     compute_dtype: str = "float32",
+    group=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One optimizer step on ``params`` (the trainable parameters, updated in
     place) → (loss, new optimizer state). ``batch`` holds "image" (B, H, W,
     3) uint8, "text_in" and "target_y" (B, T) int on the model's device.
-    Its three parts are the profiler regions ``trba.forward``,
-    ``trba.backward`` and ``trba.optimizer``."""
+    With a process ``group`` the batch is this rank's slice (the ranks'
+    slices equal in size) and the loss and gradients are the global batch's
+    (the model's BatchNorms synchronised by ``models.layers.
+    sync_batch_stats``); dropout and scheduled sampling draw for the global
+    batch (``global_draws``). Its three parts are the profiler regions
+    ``trba.forward``, ``trba.backward`` and ``trba.optimizer``."""
     model.train()
-    with annotate("trba.forward"):
-        x = normalize(batch["image"])
+    draws = (nullcontext() if group is None
+             else global_draws(dist.get_rank(group), dist.get_world_size(group)))
+    with annotate("trba.forward"), draws:
+        x = normalize(batch["image"], next(model.parameters()).dtype)
         with autocast_for(x.device, compute_dtype):
             logits = model(x, batch["text_in"], ss_prob=ss_prob, generator=generator)
-        loss = trba_ce_loss(logits.float(), batch["target_y"], pad_id)
+        loss = trba_ce_loss(float32_or_wider(logits), batch["target_y"], pad_id, group)
     with annotate("trba.backward"):
-        grads = guard_finite(loss, dict(zip(params, gradients(loss, list(params.values())))))
+        grads = guard_finite(loss, dict(zip(params, gradients(loss, list(params.values()), group))))
     with annotate("trba.optimizer"):
         updates, opt_state = tx.update(grads, opt_state, params)
         apply_updates(params, updates, None if lr_scale == 1.0 else lr_scale)
     return loss.detach(), opt_state
+
+
+def _gathered(preds: torch.Tensor, mesh: Optional[Mesh]) -> np.ndarray:
+    """Token ids of every rank's slice, in row order, on the host."""
+    return (preds if mesh is None else all_gather_rows(preds, mesh)).cpu().numpy()
 
 
 def _pad_batch(batch: Dict[str, Any], to: int) -> Tuple[Dict, int]:
@@ -329,9 +415,20 @@ def prepare_metrics_csv(path: Path, log) -> None:
         log(f"migrated {path.name} from {len(old_header)}-column to {len(CSV_FIELDS)}-column layout")
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device, non_blocking=True)
-            for k in ("image", "text_in", "target_y")}
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """The step's tensors on ``device``; with a mesh, this rank's slice."""
+    arrays = {k: np.ascontiguousarray(batch[k]) for k in ("image", "text_in", "target_y")}
+    if mesh is not None:
+        return shard_batch(arrays, mesh)[0]
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in arrays.items()}
+
+
+def _rank_main(mesh: Mesh, train_csvs, train_roots, val_csvs, val_roots, config: Dict):
+    out = train(train_csvs, train_roots, val_csvs, val_roots, config=config, mesh=mesh)
+    sync_batch_stats(out["model"], None)  # the group ends with this process
+    out["model"] = out["model"].cpu()
+    return out
 
 
 def train(
@@ -341,18 +438,31 @@ def train(
     val_roots: Optional[Union[str, Sequence[str]]] = None,
     config: Union[str, Dict, Config, None] = None,
     device: Optional[Union[str, torch.device]] = None,
+    mesh: Optional[Mesh] = None,
     **overrides,
 ) -> Dict[str, Any]:
     """High-level TRBA training → {"val_acc", "val_loss", "exp_dir", "model",
-    "history"}. ``device=None`` is the card."""
+    "history"}. ``device=None`` is the card; ``cfg.n_devices`` or ``mesh``
+    train data-parallel (module docstring)."""
     cfg = config if isinstance(config, Config) else Config(config, **overrides)
-    single_device_only(cfg.n_devices)
-    dev = resolve_device(device)
-    cfg.save()
+    mesh = data_parallel_mesh(cfg.n_devices, mesh, device)
+    if mesh is not None and mesh.group is None and mesh.shape[DATA_AXIS] > 1:
+        out = spawn(_rank_main, one_rank_per_row(mesh), train_csvs, train_roots, val_csvs,
+                    val_roots, cfg.to_dict())
+        out["model"] = out["model"].to(mesh.devices[0, 0])
+        return out
+    group = None if mesh is None else mesh.group
+    lead = mesh is None or mesh.rank == 0  # writes the files
+    dev = resolve_device(device) if mesh is None else mesh.local_shards[0][1]
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if lead:
+        cfg.save()
     rng_np = np.random.default_rng(cfg.seed)
     log_path = cfg.exp_dir / "train.log"
 
     def log(msg: str):
+        if not lead:
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         print(line)
         with open(log_path, "a", encoding="utf-8") as f:
@@ -374,7 +484,7 @@ def train(
     for i, (csv_path, root) in enumerate(zip(_as_list(train_csvs), _as_list(train_roots))):
         ds = OCRDataset(csv_path, root, stoi, max_len=cfg.max_len, img_h=cfg.img_h,
                         img_w=cfg.img_w, augment=True, augment_params=aug,
-                        charset_strict=cfg.charset_strict, seed=cfg.seed + i)
+                        charset_strict=cfg.charset_strict, seed=rank_seed(cfg.seed, mesh) + i)
         if i < len(v_csvs):
             train_sets.append(ds)
             val_sets.append(OCRDataset(v_csvs[i], v_roots[i], stoi, max_len=cfg.max_len,
@@ -404,6 +514,7 @@ def train(
         except Exception as e:  # tolerant load: warn and keep the random init
             log(f"pretrained load failed ({e}); continuing with random init")
     model.to(dev)
+    sync_batch_stats(model, group)
 
     # ---- optimizer ----
     steps_per_epoch = max(1, sum(len(d) for d in train_sets) // cfg.batch_size)
@@ -441,23 +552,31 @@ def train(
             best_val_acc = float(meta["best_val_acc"])
             patience = int(meta["patience"])
             log(f"resumed from {state_file} at epoch {start_epoch}")
+    if mesh is not None:  # every rank starts from rank 0's weights
+        broadcast_(list(model.state_dict().values()), mesh)
 
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if lead:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(log_dir=str(cfg.exp_dir / "tb"))
-    except Exception:
-        pass
+            writer = SummaryWriter(log_dir=str(cfg.exp_dir / "tb"))
+        except Exception:
+            pass
 
     metrics_csv = cfg.exp_dir / "metrics_epoch.csv"
-    prepare_metrics_csv(metrics_csv, log)
+    if lead:
+        prepare_metrics_csv(metrics_csv, log)
     proportions = cfg.proportions or [1.0 / len(train_sets)] * len(train_sets)
     generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+    # validation pads each batch to batch_size rows, and that to the ranks
+    val_rows = -(-cfg.batch_size // n_data) * n_data
     plateau = {"scale": 1.0, "patience": 0}
     decode = lambda p: decode_tokens(p, itos, pad_id, eos_id, blank_id)
 
     def save_ckpt(name: str, full_state: bool, epoch: int):
+        if not lead:
+            return
         weights = params_to_jax(model.state_dict())
         weights["itos"] = list(itos)
         weights["config"] = {k: v for k, v in cfg.to_dict().items()
@@ -470,17 +589,26 @@ def train(
                              "best_val_acc": best_val_acc, "patience": patience}
             (ckpt_dir / f"{name}_state.msgpack").write_bytes(msgpack_serialize(state))
 
+    def train_batches(epoch: int):
+        """The epoch's training batches on the device: with a mesh, this
+        rank's rows of each batch padded to the ranks (its last row
+        repeated, as the JAX trainer pads), the only ones it loads."""
+        for batch_spec in proportional_batches(train_sets, proportions, cfg.batch_size,
+                                               seed=cfg.seed + epoch):
+            if mesh is not None:
+                batch_spec = rank_items(batch_spec, mesh, repeat_last=True)
+            batch = collate_attention([train_sets[d][i] for d, i in batch_spec], stoi, cfg.max_len)
+            yield _to_device(batch, dev)
+
     history = []
     final_val_acc, final_val_loss = 0.0, float("inf")
     for epoch in range(start_epoch, cfg.epochs):
         t_epoch = time.time()
-        losses = []
-        for batch_spec in proportional_batches(train_sets, proportions, cfg.batch_size,
-                                               seed=cfg.seed + epoch):
-            batch = collate_attention([train_sets[d][i] for d, i in batch_spec], stoi, cfg.max_len)
+        losses, host_s = [], [0.0]
+        for batch in timed(train_batches(epoch), host_s):
             loss, opt_state = train_step(
-                model, tx, opt_state, params, _to_device(batch, dev), pad_id, cfg.ss_prob,
-                plateau["scale"], generator, cfg.compute_dtype,
+                model, tx, opt_state, params, batch, pad_id, cfg.ss_prob,
+                plateau["scale"], generator, cfg.compute_dtype, group,
             )
             losses.append(loss)
         train_loss = float(np.mean(torch.stack(losses).cpu().numpy())) if losses else 0.0
@@ -494,16 +622,20 @@ def train(
                 for start in range(0, len(vs), cfg.batch_size):
                     items = [vs[i] for i in range(start, min(start + cfg.batch_size, len(vs)))]
                     batch = collate_attention(items, stoi, cfg.max_len)
-                    padded, n = _pad_batch(batch, cfg.batch_size)
-                    t = _to_device(padded, dev)
+                    padded, n = _pad_batch(batch, val_rows)
+                    t = _to_device(padded, dev, mesh)
                     x = normalize(t["image"])
-                    vl.append(trba_ce_loss(model(x, t["text_in"]).float(), t["target_y"], pad_id))
-                    _, preds = model.greedy(x[:n], cfg.max_len)
-                    hyps.extend(decode(p) for p in preds.cpu().numpy())
+                    vl.append(trba_ce_loss(model(x, t["text_in"]).float(), t["target_y"], pad_id,
+                                           group))
+                    # one device decodes the batch's own rows; ranks their
+                    # slices of the padded batch, gathered
+                    x = x if mesh is not None else x[:n]
+                    _, preds = model.greedy(x, cfg.max_len)
+                    hyps.extend(decode(p) for p in _gathered(preds, mesh)[:n])
                     if cfg.eval_beam:
-                        _, bpreds = model.beam(x[:n], cfg.max_len, cfg.beam_size,
+                        _, bpreds = model.beam(x, cfg.max_len, cfg.beam_size,
                                                cfg.beam_alpha, cfg.beam_temperature)
-                        beam_hyps.extend(decode(p) for p in bpreds.cpu().numpy())
+                        beam_hyps.extend(decode(p) for p in _gathered(bpreds, mesh)[:n])
                     refs.extend(batch["texts"][:n])
                 m = aggregate_text_metrics(refs, hyps)
                 m["loss"] = float(np.mean([float(v) for v in vl])) if vl else 0.0
@@ -543,6 +675,15 @@ def train(
         save_ckpt("last", full_state=True, epoch=epoch)
 
         dt = time.time() - t_epoch
+        history.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
+                        "val_acc": val_acc, "val_cer": agg["cer"],
+                        "train_losses": [float(v) for v in torch.stack(losses).cpu()] if losses else [],
+                        "beam": beam_agg, "time_s": dt, "host_s": host_s[0]})
+        barrier(mesh)
+        if not lead:
+            if patience >= cfg.early_stop:
+                break
+            continue
         log(f"epoch {epoch}: train={train_loss:.4f} val={val_loss:.4f} acc={val_acc:.4f} "
             f"cer={agg['cer']:.4f} wer={agg['wer']:.4f} "
             + (f"beam_acc={beam_agg['accuracy']:.4f} " if beam_agg is not None else "")
@@ -552,10 +693,6 @@ def train(
         with open(metrics_csv, "a", newline="", encoding="utf-8") as f:
             csv.writer(f).writerow([epoch, train_loss, val_loss, val_acc, agg["cer"], agg["wer"],
                                     *beam_cols, plateau["scale"], round(dt, 2)])
-        history.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
-                        "val_acc": val_acc, "val_cer": agg["cer"],
-                        "train_losses": [float(v) for v in torch.stack(losses).cpu()] if losses else [],
-                        "beam": beam_agg, "time_s": dt})
         if writer is not None:
             writer.add_scalar("train/loss", train_loss, epoch)
             writer.add_scalar("val/loss", val_loss, epoch)

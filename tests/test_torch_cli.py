@@ -60,7 +60,7 @@ def test_ocr_command_writes_the_jax_packages_json(monkeypatch, image_file, tmp_p
     assert data["text"] == "hello"
     assert data["page"] == json.loads(json.dumps(_fake_page((JPage, JBlock, JWord)).model_dump()))
     assert seen["p"].kw == dict(mode="beam", batch_pages=4, max_words=32, crop_scale=1,
-                                crop_source="native")
+                                crop_source="native", mesh=None)
 
 
 def test_ocr_command_multi_image_batches(monkeypatch, capsys, image_file, tmp_path):
@@ -114,10 +114,44 @@ def test_recognize_command(monkeypatch, capsys, image_file):
     assert "word" in out and "0.7500" in out
 
 
-@pytest.mark.parametrize("argv", [["nonsense"], ["ocr", "x.png", "--n-devices", "2"]])
+@pytest.mark.parametrize("argv", [["nonsense"]])
 def test_unknown_or_unported_commands_exit(argv):
     with pytest.raises(SystemExit):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("command", ["ocr", "serve"])
+def test_n_devices_builds_a_mesh(monkeypatch, image_file, command):
+    """--n-devices N hands the Pipeline a data mesh over the first N cards
+    (as tests/test_cli.py::test_ocr_n_devices_builds_mesh); the default
+    builds none. Two cards are faked: this machine has none."""
+    import manuscript_tpu_torch.serve as serve
+
+    import torch
+
+    pipes = []
+    monkeypatch.setattr("manuscript_tpu_torch.Pipeline",
+                        lambda **kw: pipes.append(FakePipe(**kw)) or pipes[-1])
+
+    class FakeServer:
+        def __init__(self, pipe, **kw):
+            self.port, self.batch_pages = 0, 4
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(serve, "OCRServer", FakeServer)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    argv = [command] + ([image_file] if command == "ocr" else [])
+    cli.main(argv)
+    assert pipes[-1].kw["mesh"] is None
+    cli.main(argv + ["--n-devices", "2"])
+    mesh = pipes[-1].kw["mesh"]
+    assert mesh.shape == {"data": 2, "model": 1}
+    assert [str(d) for d in mesh.devices.flat] == ["cuda:0", "cuda:1"]
+    with pytest.raises(ValueError, match="requested 3 devices but only 2 available"):
+        cli.main(argv + ["--n-devices", "3"])
 
 
 def test_bench_command_runs_the_ports_bench(monkeypatch):

@@ -121,6 +121,36 @@ def test_process_batch_on_the_card(cuda):
             np.testing.assert_allclose(a.polygon, b.polygon, atol=1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("crop_source", ["native", "device"])
+def test_two_shards_on_one_card_equal_no_mesh(cuda, crop_source):
+    """The micro checkpoints through ``process_batch`` with a mesh of two
+    shards on the one card (``make_mesh(devices=["cuda:0"] * 2)``, 2 pages
+    a shard) equal the run without a mesh at 2 pages a chunk (the shapes
+    each shard sees), TF32 off: equal texts, boxes within 1e-2 px; phase B
+    ran one beam decode per shard and chunk."""
+    from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.parallel import make_mesh
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    torch.backends.cudnn.allow_tf32 = False
+    pages = [p for p, _ in eval_pages(5, seed=9100)]
+    east, trba = load_quality_models("cuda")
+    kw = dict(max_words=32, crop_source=crop_source)
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    pipe = Pipeline(east, trba, batch_pages=4, mesh=mesh, **kw)
+    plain = Pipeline(east, trba, batch_pages=2, **kw)
+    want = plain.process_batch(pages)
+    before = k1.launches
+    got = pipe.process_batch(pages)  # chunks of 4 and 1 (+1 repeated) pages
+    assert k1.launches - before == 2 * 2 * trba.max_length
+    for g, w in zip(got, want):
+        gw, ww = ([x for b in p.blocks for x in b.words] for p in (g, w))
+        assert [x.text for x in gw] == [x.text for x in ww] and len(gw) > 20
+        for a, b in zip(gw, ww):
+            np.testing.assert_allclose(a.polygon, b.polygon, atol=1e-2, rtol=0)
+
+
 def test_tps_beam_on_the_card_equals_the_cpu(cuda):
     """``TRBAModel(use_tps=True)`` with the micro checkpoint's weights and a
     warping TPS from a seed: the beam tokens on the card (K1 in every step)

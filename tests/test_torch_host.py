@@ -128,7 +128,8 @@ def test_import_leaves_jax_and_image_libraries_out():
     code = (
         "import sys, manuscript_tpu_torch, manuscript_tpu_torch.fused, manuscript_tpu_torch.bench,"
         "manuscript_tpu_torch.serve_bench, manuscript_tpu_torch.utils.profiling,"
-        "manuscript_tpu_torch.utils.compile_cache, manuscript_tpu_torch.utils.sweep;"
+        "manuscript_tpu_torch.utils.compile_cache, manuscript_tpu_torch.utils.sweep,"
+        "manuscript_tpu_torch.parallel;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'cv2', 'PIL', 'pydantic', 'msgpack', 'manuscript_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -249,11 +249,17 @@ def test_device_dataset_gathers_resizes_and_jitters(pages):
     assert torch.equal(a, b) and not torch.equal(a[0], a[1])  # per-sample factors, seeded by step
 
 
-def test_more_than_one_device_raises(pages):
+def test_more_than_one_device_raises(pages, monkeypatch):
+    """More cards than there are: the mesh raises (it never falls back to
+    the CPU) before anything is written. The data-parallel trainer itself
+    runs in tests/test_torch_mesh_train.py."""
     img_dir, coco, root = pages
-    for kw in (dict(n_devices=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            EAST.train(img_dir, coco, img_dir, coco, experiment_root=str(root / "no"), device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for kw in (dict(n_devices=2), dict(n_devices=3, device="cuda")):
+        with pytest.raises(ValueError, match=f"requested {kw['n_devices']} devices but only 1"):
+            EAST.train(img_dir, coco, img_dir, coco, experiment_root=str(root / "no"), **kw)
+    assert not (root / "no").exists()
 
 
 SMALL = dict(backbone="resnet50-micro", target_size=64, batch_size=2, lr=1e-3, log_tensorboard=False)

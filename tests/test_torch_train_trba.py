@@ -16,7 +16,7 @@ exact gradient in the stem's BatchNorms). On both the JAX float32 step is
 the farther one from the exact step (``-s`` prints both). The bound fails a
 wrong step: one encoder entry in 100 dropped. Then the trainer's own parts (freeze policies
 equal to the JAX masks, expN naming and resume-merge, the CSV migration, the
-non-finite guard, ``n_devices``) and small end-to-end runs: 2 epochs and a
+non-finite guard, ``n_devices`` beyond the cards) and small end-to-end runs: 2 epochs and a
 resume on a dozen 32×64 crops, a frozen CNN, bfloat16, and a checkpoint that
 the JAX package's ``TRBA`` loads and reads as the port does.
 """
@@ -243,9 +243,14 @@ def test_metrics_csv_header_migration(tmp_path):
     assert len(logged) == 1
 
 
-def test_more_than_one_device_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PT.train("a.tsv", "a", config={"exp_root": str(tmp_path), "n_devices": 2}, device="cpu")
+def test_more_than_one_device_raises(tmp_path, monkeypatch):
+    """More cards than there are: the mesh raises (it never falls back to
+    the CPU) before anything is written. The data-parallel trainer itself
+    runs in tests/test_torch_mesh_train.py."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices but only 1 available"):
+        PT.train("a.tsv", "a", config={"exp_root": str(tmp_path), "n_devices": 2})
     assert not any(tmp_path.iterdir())
 
 
