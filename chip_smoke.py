@@ -142,13 +142,31 @@ run with a traceback and a non-zero exit:
    ``process_batch`` over cards 0 and 1, the TRBA step with 2 NCCL ranks and
    the micro pages with 2 NCCL ranks (each rank returns every page) — on
    one card it prints that this part did not run.
+14. the port's examples and notebooks (``examples/torch_port/``,
+   ``notebooks/torch_port/``): ``parity_check`` in this process against both
+   fixtures that the JAX package committed (TF32 off; every word matched,
+   every text equal); the six demos (``pipeline_infer``, ``east_infer``,
+   ``trba_infer``, ``batch_infer``, ``trba_metrics``, ``decode_sweep``) on
+   the micro checkpoints and a few rendered pages and crops,
+   ``train_at_scale --steps 40`` at the reference's scale (peak memory,
+   ``ok``), ``make_quality_ckpt`` with ``QUALITY_EAST_EPOCHS=2`` and the
+   committed TRBA (``QUALITY_SKIP_TRBA=1``) in a temporary workdir, and
+   ``nms_bench``, ``kernel_bench`` and the five probes
+   (``native_stage_probe``, ``fused_profile``, ``east_stage_probe``,
+   ``stem_probe``, ``int8_probe``) in their smoke shapes, all at once as
+   subprocesses, each with the kernels' launches counted in its process
+   (their times there are no measurements: each script at full size,
+   alone, gives those); meanwhile, in this process, every code cell of
+   every port notebook, in order, one namespace per notebook, each in a
+   directory of its own.
 
 The script sets ``MANUSCRIPT_TPU_NO_DOWNLOAD=1`` for itself and its
 subprocesses (phase 11 lifts it while it fetches from ``file://``): a
 constructor that finds no checkpoint would otherwise try the network.
 
 It prints the card's name and power limit, one JSON line with a row per
-kernel (K1 and K2 launches from phase 5, K3 launches from phase 8), and last
+kernel (K1 and K2 launches from phase 5, K3 launches from phase 8, and
+each kernel's launches in phase 14 under ``examples_launches``), and last
 the line ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -180,8 +198,6 @@ os.environ["MANUSCRIPT_TPU_NO_DOWNLOAD"] = "1"
 
 ROOT = Path(__file__).resolve().parent
 START = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
 
 def check(ok, what) -> None:
@@ -192,34 +208,6 @@ def check(ok, what) -> None:
 
 def phase(name: str) -> None:
     print(f"\n=== {name} === ({time.perf_counter() - START:.1f} s since the start)", flush=True)
-
-
-def graph_time_ms(torch, fn, calls: int = 20, replays: int = 7) -> float:
-    """Device time of one ``fn()``: a CUDA graph of ``calls`` back-to-back
-    calls, replayed after warm-up, timed with CUDA events; median per call."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def device_profile(torch, fn, calls: int = 1) -> dict:
@@ -240,11 +228,6 @@ def device_profile(torch, fn, calls: int = 1) -> dict:
 def device_ops(torch, fn) -> int:
     """Kernels and copies that one ``fn()`` puts on the card."""
     return round(sum(n for n, _ in device_profile(torch, fn).values()))
-
-
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def test_quads(rng, n: int) -> tuple:
@@ -617,9 +600,9 @@ def quality_on_card() -> None:
     """Phase 7: ``evaluate_quality`` (8 held-out pages, seed 9000, beam) with
     native crops, device crops, ``crop_scale=2`` and the classic path against
     the JAX package's CPU numbers in ``configs/quality_reference.json``."""
-    from manuscript_tpu_torch.utils.quality import evaluate_quality
+    from manuscript_tpu_torch.utils.quality import evaluate_quality, quality_reference
 
-    ref = json.loads((ROOT / "manuscript_tpu_torch" / "configs" / "quality_reference.json").read_text())
+    ref = quality_reference()
     for name, kw in (("native", {}), ("device", {"crop_source": "device"}),
                      ("crop_scale_2", {"crop_scale": 2}), ("classic", {"use_fused": False})):
         t0 = time.perf_counter()
@@ -646,6 +629,8 @@ def k3_rows(torch, k3, rng, dev) -> dict:
     """Phase 2, K3: the scan LANMS's merge walk at 2048 and 8192 candidates
     (all live, 16 candidates a word), max_out 1024, against its plain loop.
     The bound counts one clip (860 f32 operations, as K2's) per live step."""
+    from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
+
     rows_out = {}
     for n in (2048, 8192):
         cands = torch.from_numpy(candidate_field(rng, n, n // 16)).to(dev)[None]
@@ -663,9 +648,9 @@ def k3_rows(torch, k3, rng, dev) -> dict:
         m = min(int(mk[0]), 1024)
         err = max((pk - pp)[0, :m].abs().max().item(), (sk - sp)[0, :m].abs().max().item())
         check(err <= 1e-3, err)
-        ms = graph_time_ms(torch, lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024), calls=5, replays=5)
+        ms = graph_time_ms(lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024), calls=5, replays=5)
         nbytes = rows.numel() * 4 + 1024 * 9 * 4 + 4
-        rows_out[n] = (ms, plain_ms, *bound(nbytes, n * 860), err)
+        rows_out[n] = (ms, plain_ms, *bound_ms(nbytes, n * 860), err)
         print(f"K3 lanms_merge_scan K={n} live candidates ({n // 16} words), max_out 1024: "
               f"{int(mk[0])} merged quads; max|d| = {err:.3e}; "
               "ms {:.4f} plain_ms (one call, CUDA events) {:.4f} bound_ms {:.6f} ({})".format(
@@ -1804,7 +1789,9 @@ def bench_on_card(smi: str) -> None:
     primary comes first; both MFUs lie in (0, 1.05]; the quality lines
     (phase 7's pages and settings) equal the JAX package's CPU numbers
     within phase 7's tolerances."""
-    ref = json.loads((ROOT / "manuscript_tpu_torch" / "configs" / "quality_reference.json").read_text())
+    from manuscript_tpu_torch.utils.quality import quality_reference
+
+    ref = quality_reference()
     out = subprocess_lines(["-m", "manuscript_tpu_torch", "bench"], timeout=1200)
     lines = {}
     for ln in out.splitlines():
@@ -2282,6 +2269,235 @@ def mesh_on_card(torch, det, rec, pages, capacity, k1, k2) -> dict:
     return result
 
 
+# ---- 14. the port's examples and notebooks -----------------------------------------
+
+EXAMPLES = ROOT / "examples" / "torch_port"
+# runs an example script as ``python -c RUNNER script args...`` and prints the
+# kernels' launch counts of that process after it
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.path.insert(0, {root!r})
+from manuscript_tpu_torch.ops import attention_step as k1, lanms_torch as k3, quad_iou as k2
+sys.argv = sys.argv[1:]
+code = 0
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    code = e.code or 0
+print("LAUNCHES " + json.dumps({{"attention_step": k1.launches, "quad_iou": k2.launches,
+                                "lanms_merge_scan": k3.launches}}))
+sys.exit(code)
+"""
+KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan")
+
+
+def start_examples(jobs: dict) -> tuple:
+    """Each job {name: (script, args, cwd, extra env)} started as a
+    subprocess, all at once → a handle for ``finish_examples``."""
+    runner = EXAMPLE_RUNNER.format(root=str(ROOT))
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, "-c", runner, str(EXAMPLES / script), *args], cwd=cwd,
+            env=dict(os.environ, **env), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        for name, (script, args, cwd, env) in jobs.items()
+    }
+    return jobs, procs, time.perf_counter()
+
+
+def finish_examples(started: tuple, timeout: float) -> dict:
+    """Wait for ``start_examples``'s processes → {name: (launches, output
+    lines)}; prints each one's exit code, its end in seconds since the
+    start, its launches and its last lines; a non-zero exit fails the
+    phase."""
+    jobs, procs, t0 = started
+    results, failed = {}, []
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            failed.append(f"{name}: timed out")
+        lines = out.rstrip().splitlines()
+        got = [ln for ln in lines if ln.startswith("LAUNCHES ")]
+        launches = json.loads(got[-1][len("LAUNCHES "):]) if got else {}
+        print(f"$ {jobs[name][0]} {' '.join(jobs[name][1])}  (exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s since the start; launches {launches})")
+        print("\n".join("    " + ln for ln in lines[-12:] if not ln.startswith("LAUNCHES ")))
+        if proc.returncode != 0:
+            failed.append(f"{name}: exit {proc.returncode}\n" + "\n".join(lines[-40:]))
+        results[name] = (launches, lines)
+    check(not failed, "\n".join(failed))
+    return results
+
+
+def json_lines(lines) -> list:
+    return [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def parity_on_card(torch, k1, k2) -> dict:
+    """Phase 14: ``examples/torch_port/parity_check.py`` in this process
+    against both committed fixtures of the JAX package (TF32 off): every
+    fixture word matched, every text equal."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_parity_check",
+                                                  EXAMPLES / "parity_check.py")
+    pc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pc)
+    k1.launches = k2.launches = 0
+    for seed, fixture in ((9100, "parity_fixture.json"), (9200, "parity_fixture_beam.json")):
+        path = ROOT / "examples" / fixture
+        n = len(json.loads(path.read_text())["words"])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            status = pc.main(["--quality", "--synthetic", str(seed), "--fixture", str(path)])
+        text = buf.getvalue()
+        print(text.rstrip())
+        check(status == 0 and "PARITY OK" in text, text)
+        check(f"boxes: {n} matched / {n} fixture" in text and f"texts: {n}/{n} exact" in text,
+              text)
+        check(not torch.backends.cudnn.allow_tf32, "parity ran with TF32 on")
+    launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+    print(f"parity: both fixtures PARITY OK on the card; launches {launches}")
+    check(launches["attention_step"] > 0 and launches["quad_iou"] > 0, launches)
+    return launches
+
+
+def demo_data(tmp: Path) -> dict:
+    """Three rendered pages as PNG and 64 word crops with labels."""
+    from manuscript_tpu_torch.ops.image import encode_png
+    from manuscript_tpu_torch.utils.synthetic import build_word_dataset, render_page
+
+    rng = np.random.default_rng(140)
+    pages = []
+    for i in range(3):
+        page, _ = render_page(rng)
+        pages.append(str(tmp / f"page{i}.png"))
+        Path(pages[-1]).write_bytes(encode_png(page))
+    tsv, crops = build_word_dataset(tmp / "words", n=64, seed=14)
+    return {"pages": pages, "tsv": tsv, "crops": crops}
+
+
+def run_notebooks(torch, k1, k2, tmp: Path) -> dict:
+    """Phase 14: every code cell of every notebook of the port, in order,
+    one namespace per notebook, in a directory of its own; the first
+    cell's ``DEVICE = "cuda"`` as committed."""
+    launches = {}
+    cwd = os.getcwd()
+    for path in sorted((ROOT / "notebooks" / "torch_port").glob("*.ipynb")):
+        cells = [c for c in json.loads(path.read_text())["cells"] if c["cell_type"] == "code"]
+        check('DEVICE = "cuda"' in "".join(cells[0]["source"]), path.name)
+        work = tmp / path.stem
+        work.mkdir(parents=True)
+        k1.launches = k2.launches = 0
+        namespace = {"__name__": "__main__"}
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        os.chdir(work)
+        try:
+            with contextlib.redirect_stdout(buf):
+                for i, cell in enumerate(cells):
+                    exec(compile("".join(cell["source"]), f"{path.name}[{i}]", "exec"), namespace)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            launches[path.stem] = {"attention_step": k1.launches, "quad_iou": k2.launches}
+            print(f"{path.name}: {len(cells)} code cells in {time.perf_counter() - t0:.1f} s; "
+                  f"launches {launches[path.stem]}; last lines:")
+            print("\n".join("    " + ln[:200] for ln in buf.getvalue().rstrip().splitlines()[-6:]))
+        check(namespace["DEVICE"] == "cuda", path.name)
+    # the pipelines' phases A and B; the recognizer trainer's validation decodes
+    for name in ("quickstart", "detector_latency"):
+        check(launches[name]["quad_iou"] > 0, (name, launches))
+    for name in ("quickstart", "detector_latency", "recognizer_training"):
+        check(launches[name]["attention_step"] > 0, (name, launches))
+    return launches
+
+
+def examples_and_notebooks(torch, k1, k2, k3, smi: str) -> dict:
+    """Phase 14 → the kernels' launches in all of it: parity against both
+    fixtures in this process; then at once, as subprocesses: the six demos
+    on the micro checkpoints, ``train_at_scale --steps 40``,
+    ``make_quality_ckpt`` with ``QUALITY_EAST_EPOCHS=2`` and the committed
+    TRBA, and ``nms_bench``, ``kernel_bench`` and the five probes in their
+    smoke shapes, while this process runs the five notebooks. Their times
+    here are no measurements: the scripts at full size, each alone, give
+    those."""
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    add(parity_on_card(torch, k1, k2))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        tmp = Path(tmp)
+        data = demo_data(tmp)
+        q, smoke = ["--quality"], {"MANUSCRIPT_TPU_BENCH_SMOKE": "1"}
+        # script → the kernels it must launch
+        want = {"pipeline_infer": ("attention_step", "quad_iou"), "east_infer": (),
+                "trba_infer": ("attention_step",), "batch_infer": ("attention_step", "quad_iou"),
+                "trba_metrics": ("attention_step",), "decode_sweep": ("attention_step",),
+                "train_at_scale": (), "make_quality_ckpt": ("attention_step",),
+                "nms_bench": ("quad_iou", "lanms_merge_scan"), "kernel_bench": KERNELS,
+                "native_stage_probe": ("attention_step", "quad_iou"),
+                "fused_profile": ("attention_step", "quad_iou"), "east_stage_probe": (),
+                "stem_probe": (), "int8_probe": ()}
+        jobs = {
+            "pipeline_infer": ("pipeline_infer.py", [data["pages"][0], *q, "--out",
+                                                     str(tmp / "vis.png")], tmp, {}),
+            "east_infer": ("east_infer.py", [data["pages"][1], *q, "--out",
+                                             str(tmp / "east.png")], tmp, {}),
+            "trba_infer": ("trba_infer.py", [str(Path(data["crops"]) / "*.png"), *q], tmp, {}),
+            "batch_infer": ("batch_infer.py", [*data["pages"], *q], tmp, {}),
+            "trba_metrics": ("trba_metrics.py", [data["tsv"], data["crops"], *q], tmp, {}),
+            "decode_sweep": ("decode_sweep.py", [data["tsv"], data["crops"], *q], tmp,
+                             {"N_TRIALS": "4"}),
+            "train_at_scale": ("train_at_scale.py", ["--steps", "40"], tmp, {}),
+            "make_quality_ckpt": ("make_quality_ckpt.py", [str(tmp / "quality_run")], tmp,
+                                  {"QUALITY_EAST_EPOCHS": "2", "QUALITY_SKIP_TRBA": "1"}),
+            **{name: (f"{name}.py", [], tmp, smoke)
+               for name in ("nms_bench", "kernel_bench", "native_stage_probe", "fused_profile",
+                            "east_stage_probe", "stem_probe", "int8_probe")},
+        }
+        started = start_examples(jobs)
+        try:
+            nb = run_notebooks(torch, k1, k2, tmp / "notebooks")
+        except BaseException:
+            for proc in started[1].values():
+                proc.kill()
+            raise
+        runs = finish_examples(started, timeout=900)
+
+        for name, kernels in want.items():
+            check(all(runs[name][0][k] > 0 for k in kernels), (name, runs[name][0]))
+            add(runs[name][0])
+        check(any("Accuracy: " in ln for ln in runs["trba_metrics"][1]), "trba_metrics")
+        lines = {ln["metric"]: ln for ln in json_lines(runs["train_at_scale"][1])}
+        check(lines["train_at_scale_result"]["ok"] is True, lines)
+        for part in ("east", "trba"):
+            row = lines[f"{part}_scale_train"]
+            check(row["device"] == smi and row["steps_per_sec"] > 0, row)
+            print(f"train_at_scale {part}, 40 steps: {row['steps_per_sec']} steps/s beside the "
+                  f"other scripts, peak {row['peak_gib']:.2f} GiB ({row['config']}); loss "
+                  f"{lines[f'{part}_scale_loss']}")
+        out_dir = tmp / "quality_run" / "quality"
+        check(sorted(p.name for p in out_dir.iterdir()) == [
+            "east_micro.json", "east_micro.msgpack", "trba_micro.msgpack"], list(out_dir.iterdir()))
+        check(sum("[eval " in ln for ln in runs["make_quality_ckpt"][1]) == 4, "four evaluations")
+        for name in ("nms_bench", "kernel_bench", "native_stage_probe", "fused_profile",
+                     "east_stage_probe", "stem_probe", "int8_probe"):
+            rows = json_lines(runs[name][1])
+            check(rows and all(r["device"] == smi for r in rows), (name, rows[:2]))
+        check(all(r["route"] == "cuda" for r in json_lines(runs["kernel_bench"][1])), "routes")
+    for launches in nb.values():
+        add(launches)
+    print(f"phase 14 launches in all (this process and its subprocesses): {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2292,6 +2508,7 @@ def main() -> int:
     from manuscript_tpu_torch import EAST, TRBA, Pipeline
     from manuscript_tpu_torch.ops import _build, attention_step as k1, lanms_torch as k3, quad_iou as k2
     from manuscript_tpu_torch.ops.lanms_torch import _predecessor_pairs, locality_aware_nms_parallel
+    from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2336,9 +2553,9 @@ def main() -> int:
         # read once, h' and c' written; memory read per beam row beside it
         flops, nbytes = k1.step_cost(words, rows, T, H, E, n_tok)
         nbytes_per_row = k1.step_cost(rows, rows, T, H, E, n_tok)[1]
-        k1_rows[rows] = (graph_time_ms(torch, lambda: k1.attention_step_cuda(*a_, beam=K)),
-                         graph_time_ms(torch, lambda: k1.attention_step_plain(*a_, beam=K)),
-                         *bound(nbytes, flops), bound(nbytes_per_row, flops)[0])
+        k1_rows[rows] = (graph_time_ms(lambda: k1.attention_step_cuda(*a_, beam=K)),
+                         graph_time_ms(lambda: k1.attention_step_plain(*a_, beam=K)),
+                         *bound_ms(nbytes, flops), bound_ms(nbytes_per_row, flops)[0])
         print(f"K1 attention_step R={rows} (B={words} words, beam {K}) T={T} H={H} E={E} V={V}: "
               f"max|dh|,|dc| = {err:.3e}; ms {{:.4f}} plain_ms {{:.4f}} bound_ms {{:.4f}} ({{}}); "
               "bound_ms counting the memory once per beam row {:.4f}".format(*k1_rows[rows]))
@@ -2395,9 +2612,9 @@ def main() -> int:
         live = pairs if n_live is None else int(n_live.sum())
         flops, nbytes = k2.gather_cost(qs.shape[0], pairs, live,
                                        0 if n_live is None else n_live.numel())
-        k2_rows[name] = (graph_time_ms(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
-                         graph_time_ms(torch, lambda: k2.quad_iou_gather_plain(qs, ia, ib, n_live)),
-                         *bound(nbytes, flops), graph_time_ms(torch, copy_form))
+        k2_rows[name] = (graph_time_ms(lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
+                         graph_time_ms(lambda: k2.quad_iou_gather_plain(qs, ia, ib, n_live)),
+                         *bound_ms(nbytes, flops), graph_time_ms(copy_form))
         k2_ops[name] = (device_ops(torch, lambda: k2.quad_iou_gather_cuda(qs, ia, ib, n_live)),
                         device_ops(torch, copy_form))
         print(f"K2 quad_iou_gather {name}: P={pairs} pairs of {qs.shape[0]} quads, {live} live: "
@@ -2412,9 +2629,9 @@ def main() -> int:
     torch.cuda.synchronize()
     k2m_err = (mk - mp).abs().max().item()
     check(k2m_err <= 2e-5, k2m_err)
-    k2m = (graph_time_ms(torch, lambda: k2.quad_iou_matrix_cuda(a, b)),
-           graph_time_ms(torch, lambda: k2.quad_iou_matrix_plain(a, b), calls=2, replays=3),
-           *bound(k2.matrix_cost(1024, 1024)[1], k2.matrix_cost(1024, 1024)[0]))
+    k2m = (graph_time_ms(lambda: k2.quad_iou_matrix_cuda(a, b)),
+           graph_time_ms(lambda: k2.quad_iou_matrix_plain(a, b), calls=2, replays=3),
+           *bound_ms(k2.matrix_cost(1024, 1024)[1], k2.matrix_cost(1024, 1024)[0]))
     print(f"K2 quad_iou_matrix 1024x1024: max|d| = {k2m_err:.3e}; "
           "ms {:.4f} plain_ms {:.4f} bound_ms {:.4f} ({})".format(*k2m))
 
@@ -2547,6 +2764,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     mesh_result = mesh_on_card(torch, det, rec, pages5, capacity5, k1, k2)
 
+    # ---- 14. the port's examples and notebooks -------------------------------------------
+    phase("14 examples and notebooks")
+    print(smi)
+    example_launches = examples_and_notebooks(torch, k1, k2, k3, smi)
+
     # ---- result ---------------------------------------------------------------
     phase("result")
     print(smi)
@@ -2561,7 +2783,8 @@ def main() -> int:
     print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
           f"Pipeline.predict on 3 pages in phase 3: {launches}; training's validations in "
           f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}; phase 13, two shards "
-          f"on one card: {mesh_result['launches']}), K3 launches of "
+          f"on one card: {mesh_result['launches']}; phase 14, the examples and notebooks: "
+          f"{example_launches}), K3 launches of "
           f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
           f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
     rows = [
@@ -2570,13 +2793,15 @@ def main() -> int:
          "replaces": "manuscript_tpu/ops/pallas_attention.py:116",
          "launches": batch_launches["attention_step"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "examples_launches": example_launches["attention_step"]},
         {"name": "quad_iou", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/quad_iou.cu",
          "replaces": "manuscript_tpu/ops/pallas_iou.py:136",
          "launches": batch_launches["quad_iou"], "max_abs_err": max(k2_err, k2m_err),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None,
+         "examples_launches": example_launches["quad_iou"]},
         {"name": "lanms_merge_scan", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/quad_iou.cu",
          "replaces": "manuscript_tpu/ops/lanms_jax.py:151 (the lax.scan merge of "
@@ -2584,7 +2809,8 @@ def main() -> int:
          "launches": classic_launches["lanms_merge_scan"],
          "max_abs_err": max(r[-1] for r in k3_rows_.values()),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "bound_by": k3_by, "library_ms": None,
+         "examples_launches": example_launches["lanms_merge_scan"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

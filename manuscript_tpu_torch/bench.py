@@ -50,7 +50,6 @@ import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -60,6 +59,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .utils.device import card_name
 
 ROOT = Path(__file__).resolve().parent.parent
 RAW_PATH = ROOT / "build" / "bench_torch_raw.json"
@@ -92,18 +93,6 @@ def build_crops(n: int = 32, h: int = 64, w: int = 256):
 
 def is_smoke() -> bool:
     return os.environ.get("MANUSCRIPT_TPU_BENCH_SMOKE") == "1"
-
-
-def card_name(dev: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi prints them; "cpu" for
-    a smoke run."""
-    if dev.type != "cuda":
-        return "cpu"
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[dev.index or 0]
 
 
 def _sync(dev: torch.device) -> None:
@@ -171,9 +160,10 @@ def score_quantiles(east, page) -> tuple:
     return tuple(sorted({round(float(v), 6) for v in q}))
 
 
-def models(smoke: bool):
+def models(smoke: bool, device=None):
     """Device, random-weight EAST and TRBA (the geometry made word-sized)
-    and the 6 bench pages."""
+    and the 6 bench pages; on ``device`` when given, else the CPU in smoke
+    mode and the card otherwise."""
     from .detectors import EAST
     from .recognizers import TRBA
     from .utils.device import resolve_device
@@ -182,7 +172,7 @@ def models(smoke: bool):
     # the same two variables)
     os.environ.setdefault("MANUSCRIPT_TPU_NO_DOWNLOAD", "1")
     os.environ.setdefault("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT", "1")
-    dev = torch.device("cpu") if smoke else resolve_device(None)
+    dev = resolve_device(device if device is not None else "cpu" if smoke else None)
     # smoke pins 16 word slots, so it sets the box capacity that an auto
     # capacity of 16 would (4 × 16, at least 256)
     east = EAST(

@@ -35,6 +35,10 @@ beside the card's work. Short chunks are not padded to ``batch_pages``:
 nothing here is compiled for a fixed batch. Each launch is a profiler and
 NVTX region (``utils/profiling.annotate``): ``fused.phase_a``,
 ``fused.phase_b`` and, on the device-crop path, ``fused.page_program``.
+Inside them the stages are regions too: ``fused.east_forward``,
+``fused.decode`` (decode and compaction), ``fused.nms`` and
+``fused.postprocess`` in phase A, the recognizer's ``trba.encode`` and
+``trba.decode`` in phase B.
 
 Every launch goes through a mesh (``parallel.make_mesh``); without one it
 is the 1 × 1 mesh of the detector's device, holding the wrappers' own
@@ -250,7 +254,8 @@ class FusedOCR:
         (B, max_boxes, 9), score −1 on invalid rows; ``scale_x``/``scale_y``
         are (B,) page/target ratios; ``model`` a copy of the detector's model
         (its own by default)."""
-        score, geo = self.detector.maps(pages, model)
+        with annotate("fused.east_forward"):
+            score, geo = self.detector.maps(pages, model)
         return self._boxes(score, geo, self.detector.score_thresh, scale_x, scale_y)
 
     def _boxes(self, score, geo, score_thresh, scale_x, scale_y) -> torch.Tensor:
@@ -258,16 +263,20 @@ class FusedOCR:
         boxes9 (B, max_boxes, 9), score −1 on invalid rows. ``score_thresh``
         is one number or one per page."""
         det = self.detector
-        cands = det.candidates(score, geo, score_thresh)
-        merged, count = locality_aware_nms_parallel(cands, det.iou_threshold, det.max_boxes)
-        boxes9, bvalid = postprocess_boxes(
-            merged, count, det.expand_ratio_w, det.expand_ratio_h, scale_x, scale_y,
-            axis_aligned=det.axis_aligned_output,
-            remove_anomalies=det.remove_area_anomalies,
-            anomaly_sigma=det.anomaly_sigma_threshold,
-            anomaly_min_count=det.anomaly_min_box_count,
-        )
-        boxes9[..., 8] = torch.where(bvalid, boxes9[..., 8], torch.full_like(boxes9[..., 8], -1.0))
+        with annotate("fused.decode"):
+            cands = det.candidates(score, geo, score_thresh)
+        with annotate("fused.nms"):
+            merged, count = locality_aware_nms_parallel(cands, det.iou_threshold, det.max_boxes)
+        with annotate("fused.postprocess"):
+            boxes9, bvalid = postprocess_boxes(
+                merged, count, det.expand_ratio_w, det.expand_ratio_h, scale_x, scale_y,
+                axis_aligned=det.axis_aligned_output,
+                remove_anomalies=det.remove_area_anomalies,
+                anomaly_sigma=det.anomaly_sigma_threshold,
+                anomaly_min_count=det.anomaly_min_box_count,
+            )
+            boxes9[..., 8] = torch.where(bvalid, boxes9[..., 8],
+                                         torch.full_like(boxes9[..., 8], -1.0))
         return boxes9
 
     def _box_extents(self, boxes9: torch.Tensor):

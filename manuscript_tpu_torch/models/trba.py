@@ -15,7 +15,10 @@ when ``dropblock_p`` > 0. Every draw comes from the ``generator`` given to
 ``use_tps`` puts a TPS rectification (``models/tps.py``, ``tps_fiducials``
 points, identity at init) in front of the CNN, as the JAX model's option
 does; ``cast`` moves it to the compute dtype with the CNN, as the JAX model
-gives it its ``dtype``, and its grid and sampling stay float32."""
+gives it its ``dtype``, and its grid and sampling stay float32.
+
+``greedy`` and ``beam`` mark their two parts as profiler regions
+(``utils/profiling.annotate``): ``trba.encode`` and ``trba.decode``."""
 
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .attention import AttentionDecoder
 from .layers import dropout, float32_or_wider
 from .rnn import BiLSTM
@@ -98,11 +102,13 @@ class TRBAModel(nn.Module):
             return self.decoder(float32_or_wider(enc), text_in, ss_prob, generator)
 
     def greedy(self, x, max_len: int = 25):
-        enc = self.encode(x)
-        with _no_autocast(enc):
+        with annotate("trba.encode"):
+            enc = self.encode(x)
+        with annotate("trba.decode"), _no_autocast(enc):
             return self.decoder.greedy(enc, max_len=max_len)
 
     def beam(self, x, max_len=25, beam_size=8, alpha=0.9, temperature=1.7):
-        enc = self.encode(x)
-        with _no_autocast(enc):
+        with annotate("trba.encode"):
+            enc = self.encode(x)
+        with annotate("trba.decode"), _no_autocast(enc):
             return self.decoder.beam(enc, max_len, beam_size, alpha, temperature)

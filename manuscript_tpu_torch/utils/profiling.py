@@ -10,17 +10,83 @@ TensorBoard's profiler plugin or Perfetto, where the JAX module wraps
 card, in NVTX. Two helpers have no JAX counterpart: ``device_split`` reads
 a finished trace's device time by kernel and by region, and ``count_flops``
 counts the FLOPs of the work run inside it, the hand-written kernels'
-included.
+included. ``graph_time_ms`` and ``call_ms`` time one call and ``bound_ms``
+gives the least time the card could take for a call's bytes and
+operations: ``chip_smoke.py`` and ``examples/torch_port/kernel_bench.py``
+time the kernels with them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
 import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 7) -> float:
+    """Device time of one ``fn()`` on the card: a CUDA graph of ``calls``
+    back-to-back calls, replayed after warm-up, timed with CUDA events;
+    median per call."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def call_ms(fn, device: torch.device, calls: int = 10) -> float:
+    """Milliseconds of one ``fn()`` after one warm-up call: on a card, CUDA
+    events around ``calls`` back-to-back calls (for work that a CUDA graph
+    cannot hold: host waits, library workspaces), their mean; on the CPU
+    the host clock's median of ``calls`` calls."""
+    fn()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    H100's memory rate and the f32 operations over its f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _synchronize(fence) -> None:
@@ -163,6 +229,19 @@ def device_split(prof) -> Dict[str, object]:
         "window_ms": window / 1e3,
         "busy": busy / window if window > 0 else 0.0,
     }
+
+
+def region_host_ms(prof) -> Dict[str, tuple]:
+    """{annotate name: (occurrences, host-clock ms summed over them)} of a
+    finished ``trace()``: the regions' spans on the calling thread, which a
+    CPU-only trace has where ``device_split`` has no device time."""
+    out: Dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.is_user_annotation:
+            row = out.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += (e.time_range.end - e.time_range.start) / 1e3
+    return {k: tuple(v) for k, v in out.items()}
 
 
 class FlopCount:

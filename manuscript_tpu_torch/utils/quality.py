@@ -19,20 +19,34 @@ import numpy as np
 import torch
 
 QUALITY_DIR = Path(__file__).resolve().parents[2] / "manuscript_tpu" / "configs" / "quality"
+# the JAX package's numbers for the micro checkpoints (evaluate_quality on
+# the CPU), which the card's runs are held to
+QUALITY_REFERENCE = Path(__file__).resolve().parent.parent / "configs" / "quality_reference.json"
+
+
+def quality_reference() -> Dict:
+    """``configs/quality_reference.json``: "args" of ``evaluate_quality`` and
+    the JAX package's results under "native", "device", "crop_scale_2" and
+    "classic"."""
+    return json.loads(QUALITY_REFERENCE.read_text())
 
 
 def load_quality_models(
-    device: Optional[Union[str, torch.device]] = None, dtype: torch.dtype = torch.float32
+    device: Optional[Union[str, torch.device]] = None, dtype: torch.dtype = torch.float32,
+    directory: Union[str, Path] = QUALITY_DIR,
 ):
-    """EAST + TRBA from the micro checkpoints on ``device`` (the card by
-    default). ``east_micro.json`` holds the detector's training settings;
-    the TRBA checkpoint carries its own charset and config."""
+    """EAST + TRBA from the micro checkpoints in ``directory`` (the committed
+    ones by default; ``examples/torch_port/make_quality_ckpt.py`` writes
+    others) on ``device`` (the card by default). ``east_micro.json`` holds
+    the detector's training settings; the TRBA checkpoint carries its own
+    charset and config."""
     from ..detectors import EAST
     from ..recognizers import TRBA
 
-    meta = json.loads((QUALITY_DIR / "east_micro.json").read_text())
+    directory = Path(directory)
+    meta = json.loads((directory / "east_micro.json").read_text())
     east = EAST(
-        QUALITY_DIR / "east_micro.msgpack",
+        directory / "east_micro.msgpack",
         device=device,
         backbone=meta["backbone"],
         target_size=meta["target_size"],
@@ -47,7 +61,7 @@ def load_quality_models(
         max_boxes=256,
         dtype=dtype,
     )
-    return east, TRBA(QUALITY_DIR / "trba_micro.msgpack", device=device)
+    return east, TRBA(directory / "trba_micro.msgpack", device=device)
 
 
 def _axis_iou(a: np.ndarray, b: np.ndarray) -> float:
