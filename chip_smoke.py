@@ -68,6 +68,12 @@ run with a traceback and a non-zero exit:
    OHEM, focal geometry) from the micro checkpoints on the card and on the
    CPU with TF32 off, each SGD at a scale of 1e6 (|d| of the loss, of the
    gradients read off the update, and of the running statistics);
+   ``EAST.train`` at ``make_quality_ckpt``'s recipe cut to 4 pages at 64²,
+   batch 2, 12 epochs (24 steps: a warm restart, four Lookahead syncs,
+   RAdam's rectified branch, four validations) on the card and on the CPU
+   from one initial state, the device jitter the identity, TF32 off and
+   cuDNN deterministic: every epoch's training and validation loss within
+   2e-4 relative, the largest gap printed;
    ``TRBA.train`` at full width (64×256, hidden 256, 194 tokens, batch 64,
    Adam, clip 5, dropout on) on 256 rendered crops written as PNG, 2 epochs
    with beam validation and a third resumed from ``last_state.msgpack``
@@ -1233,11 +1239,70 @@ def east_full_training(torch, tmp: Path) -> None:
     print(f"best.msgpack in EAST(weights_path=...): predict → {len(words_of(result['page']))} boxes")
 
 
+# make_quality_ckpt's EAST recipe (RAdam + Lookahead, cosine warm restarts,
+# clip 5, GPU-resident data, nothing frozen), cut to 4 pages at 64² and 12
+# epochs of 2 steps; tests/test_torch_train_east_epochs.py runs it against
+# the JAX trainer on the CPU
+EPOCHS_RECIPE = dict(backbone="resnet50-micro", target_size=64, epochs=12, batch_size=2, lr=1e-3,
+                     grad_clip=5.0, use_sam=False, use_lookahead=True, use_multiscale=False,
+                     freeze_first=False, early_stop=150, val_interval=3, log_tensorboard=False,
+                     cache_device=True, seed=0)
+EPOCHS_LOSS_REL = 2e-4  # the test's bound: two float32 loops that sum in different orders
+
+
+def east_epochs_card_vs_cpu(torch, tmp: Path) -> None:
+    """Phase 10: ``EAST.train`` at ``EPOCHS_RECIPE`` on the card and on the
+    CPU from one initial state (``init_random_`` of seed 0), the device
+    jitter the identity (the card's and the CPU's generators draw different
+    factors), TF32 off (set by the caller) and cuDNN deterministic (set
+    here): every epoch's training loss and every validation loss within
+    ``EPOCHS_LOSS_REL`` relative; the largest gap is printed."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.train import east_train
+    from manuscript_tpu_torch.utils.synthetic import build_page_dataset
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    coco, pages, _ = build_page_dataset(tmp / "epoch_pages", 4, seed=0, page_h=256, page_w=192,
+                                        n_rows=3, n_cols=1)
+    start = init_random_(EASTModel("resnet50-micro"), 0).state_dict()
+    real = east_train.init_random_, east_train.device_color_jitter, torch.backends.cudnn.deterministic
+    east_train.init_random_ = lambda model, seed: (model.load_state_dict(start), model)[1]
+    east_train.device_color_jitter = lambda img, gen, rows=None: img
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [east_train.train(pages, coco, pages, coco, device=dev, model_name=f"epochs_{i}",
+                                 experiment_root=str(tmp / "epochs"), **EPOCHS_RECIPE)["history"]
+                for i, dev in enumerate(("cuda", "cpu"))]
+    finally:
+        east_train.init_random_, east_train.device_color_jitter = real[:2]
+        torch.backends.cudnn.deterministic = real[2]
+    gaps = []
+    for got, want in zip(*runs):
+        check(got["epoch"] == want["epoch"], (got["epoch"], want["epoch"]))
+        line = f"  epoch {want['epoch']}: train loss {got['train_loss']:.6f} / {want['train_loss']:.6f}"
+        for key in ("train_loss", "val_loss"):
+            if key in want:
+                gaps.append((abs(got[key] - want[key]) / abs(want[key]), key, want["epoch"]))
+        if "val_loss" in want:
+            line += f", val loss {got['val_loss']:.6f} / {want['val_loss']:.6f}"
+        print(line)
+    check(len(runs[0]) == EPOCHS_RECIPE["epochs"] and sum(k == "val_loss" for _, k, _ in gaps) == 4,
+          runs[0])
+    worst = max(gaps)
+    print(f"EAST.train, make_quality_ckpt's recipe at 64² (24 steps, 4 validations), card vs "
+          f"CPU from one initial state, jitter off, TF32 off, cuDNN deterministic: "
+          f"largest relative loss gap {worst[0]:.3e} ({worst[1]}, epoch {worst[2]}); bound "
+          f"{EPOCHS_LOSS_REL:g}")
+    check(worst[0] <= EPOCHS_LOSS_REL, worst)
+
+
 def training(torch, k1) -> int:
     """Phase 10 → the K1 steps of training's validations."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     micro_train_steps(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_epochs_") as tmp:
+        east_epochs_card_vs_cpu(torch, Path(tmp))
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         launches = trba_full_training(torch, k1, Path(tmp))

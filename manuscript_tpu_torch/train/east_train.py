@@ -57,7 +57,7 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -231,16 +231,23 @@ class EASTTrainState:
                            "best_val_loss": self.best_val_loss, "patience": self.patience}
         return msgpack_serialize(payload)
 
-    def load(self, data: Union[bytes, Path]) -> "EASTTrainState":
+    def load(self, data: Union[bytes, Path],
+             fresh_opt_state: Optional[Callable[[], Any]] = None) -> "EASTTrainState":
         """Tolerant restore: the weights and counters must load; an optimizer
         state or EMA of another layout (another optimizer, or a JAX state
-        file) is kept fresh with a warning."""
+        file) is kept fresh with a warning. The fresh optimizer state is
+        ``fresh_opt_state()``, called once the weights are loaded, since
+        Lookahead's state holds a copy of the weights it starts from (a state
+        built before the load would pull the weights back toward the ones
+        they replaced at its first sync); without it, the state held."""
         raw = msgpack_restore(data)
         self.model.load_state_dict(params_from_jax(raw))
         try:
             self.opt_state = restore_tree(self.opt_state, raw["opt_state"])
         except (ValueError, KeyError, TypeError) as e:
             print(f"[EAST.train] opt_state restore failed ({e}); keeping fresh")
+            if fresh_opt_state is not None:
+                self.opt_state = fresh_opt_state()
         if self.ema is not None:
             try:
                 ema = params_from_jax({"params": raw["ema_params"]})
@@ -460,7 +467,7 @@ def train(
     if resume_from is not None:
         rp = _resolve_resume_path(resume_from)
         if rp is not None:
-            state.load(rp)
+            state.load(rp, lambda: tx.init(trainable))
             print(f"[EAST.train] resumed from {rp} at epoch {state.epoch}")
         else:
             print(f"[EAST.train] resume requested but no state found at {resume_from}")

@@ -17,9 +17,10 @@ torch conversion, and seeded random init.
   their flax names and layouts ((in, 4H) kernels, gates i,f,g,o, one folded
   bias), so the port computes the same sums. ``params_to_jax`` is its
   inverse.
-* ``init_random_`` fills a model from a seeded ``torch.Generator`` (LeCun
-  normal kernels, zero biases, identity BatchNorm) — the full-width models
-  have no trained weights in the repository.
+* ``init_random_`` fills a model from a seeded ``torch.Generator`` (flax's
+  ``lecun_normal`` kernels, truncated at ±2; zero biases, identity
+  BatchNorm) — the full-width models have no trained weights in the
+  repository.
 * ``cached_checkpoint`` finds a checkpoint in the user's cache
   (``cache_root()/<name>``: a ``.msgpack``, else a reference ``.pth``), and
   ``allow_random_init_default`` reads ``MANUSCRIPT_TPU_ALLOW_RANDOM_INIT``.
@@ -311,12 +312,28 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
     return out
 
 
+TRUNCATED_STD = 0.87962566103423978  # the std of a standard normal truncated at ±2
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, ``nn.initializers.lecun_normal()``: a
+    standard normal truncated at ±2 (drawn as ``jax.random.truncated_normal``
+    draws it, the inverse error function of a uniform between erf(∓√2)),
+    divided by its std 0.8796 so that the variance is 1/fan_in: no sample
+    lies beyond 2.2737/√fan_in. Float32, on the CPU."""
+    lo, hi = torch.erf(torch.tensor([-2.0, 2.0], dtype=torch.float64) / np.sqrt(2))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = (np.sqrt(2) * torch.erfinv(u)).clamp(-2.0, 2.0)
+    return (z / (TRUNCATED_STD * np.sqrt(fan_in))).float()
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random init in place: LeCun-normal convs, linears and flax-named
-    ``*kernel*`` parameters (std 1/√fan_in), zero biases, BatchNorm as the
-    identity, and a module's ``identity_init_`` where it has one (the TPS's
-    last localization layer, as flax initialises it)."""
+    """Seeded random init in place: convs, linears and flax-named ``*kernel*``
+    parameters drawn by ``lecun_normal`` (flax's default kernel init:
+    truncated at ±2, std 1/√fan_in), zero biases, BatchNorm as the identity,
+    and a module's ``identity_init_`` where it has one (the TPS's last
+    localization layer, as flax initialises it)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     for name, t in sorted(model.state_dict().items()):
         leaf = name.rsplit(".", 1)[-1]
@@ -329,7 +346,7 @@ def init_random_(model: nn.Module, seed: int = 0) -> nn.Module:
                 fan_in = int(np.prod(t.shape[1:]))
             else:  # flax-named (in, out) kernel
                 fan_in = t.shape[0]
-            val = torch.randn(t.shape, generator=gen) / np.sqrt(fan_in)
+            val = lecun_normal(t.shape, fan_in, gen)
         t.copy_(val.to(t.dtype))
     for m in model.modules():  # layers initialised to an identity (the TPS's last)
         if hasattr(m, "identity_init_"):
