@@ -1853,8 +1853,14 @@ def bench_on_card(smi: str) -> None:
     ``--perf-gate``. Every line parses, is finite and names the card; the
     primary comes first; both MFUs lie in (0, 1.05]; the quality lines
     (phase 7's pages and settings) equal the JAX package's CPU numbers
-    within phase 7's tolerances."""
+    within phase 7's tolerances. The primary and the ``PERF_GATE`` line
+    name the bench's pinned workload: 128 word slots and ``BENCH_WORDS``
+    words a page."""
+    from manuscript_tpu_torch.bench import BENCH_WORDS
     from manuscript_tpu_torch.utils.quality import quality_reference
+
+    def pinned(row) -> bool:
+        return row["word_capacity"] == 128 and BENCH_WORDS[0] <= row["words_per_page"] <= BENCH_WORDS[1]
 
     ref = quality_reference()
     out = subprocess_lines(["-m", "manuscript_tpu_torch", "bench"], timeout=1200)
@@ -1865,6 +1871,7 @@ def bench_on_card(smi: str) -> None:
             lines[row["metric"]] = row
             check(np.isfinite(row["value"]) and row["device"] == smi, row)
     check(next(iter(lines)) == "e2e_pipeline_pages_per_sec", list(lines))
+    check(pinned(lines["e2e_pipeline_pages_per_sec"]), lines["e2e_pipeline_pages_per_sec"])
     for name in ("fused_program_mfu", "fused_e2e_mfu", "east_train_step_mfu", "trba_train_step_mfu"):
         check(0.0 < lines[name]["value"] <= 1.05, lines[name])
     check(round(lines["detector_f1"]["value"], 3) == round(ref["native"]["detector_f1"], 3),
@@ -1878,6 +1885,13 @@ def bench_on_card(smi: str) -> None:
     gate = subprocess_lines(["-m", "manuscript_tpu_torch.bench", "--perf-gate"], timeout=600)
     got = json.loads(next(ln for ln in gate.splitlines() if ln.startswith("PERF_GATE "))[10:])
     check(got["backend"] == "cuda" and got["device"] == smi and 0 < got["program_mfu"] <= 1.05, got)
+    check(pinned(got), got)
+    primary = lines["e2e_pipeline_pages_per_sec"]
+    print(f"workload (BENCH_WORDS {BENCH_WORDS}): bench {primary['words_per_page']} words a page "
+          f"at {primary['word_capacity']} slots, {primary['box_capacity']} boxes; perf gate "
+          f"{got['words_per_page']} at {got['word_capacity']} slots, {got['box_capacity']} boxes: "
+          f"device-only {got['device_only_pages_per_sec']} pages/s, MFU {got['program_mfu']}, "
+          f"{got['flops_per_page']:.4g} FLOPs a page")
 
 
 def serve_bench_on_card() -> None:

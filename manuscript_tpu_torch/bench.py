@@ -1,7 +1,7 @@
 """End-to-end benchmark of the port on one CUDA card (counterpart of the
 root ``bench.py``, which measures the JAX package and stays its own).
 
-    python -m manuscript_tpu_torch.bench [--perf-gate]
+    python -m manuscript_tpu_torch.bench [--perf-gate] [--seed N]
     python -m manuscript_tpu_torch bench
     MANUSCRIPT_TPU_BENCH_SMOKE=1 python -m manuscript_tpu_torch.bench   # CPU self-test
 
@@ -16,12 +16,18 @@ primary ``e2e_pipeline_pages_per_sec`` first; every line carries
 ``vs_baseline`` divides by the reference's only recorded number, its Colab
 EAST-only mean of 0.604 s a page (a CPU-class figure, not a card's).
 
-Weights are random from a seed (no checkpoint is fetched), so two things are
-set before the timing, as the JAX bench calibrates its threshold: the
+Weights are random from a seed (no checkpoint is fetched; ``--seed`` picks
+it), so the workload is pinned before the timing, apart from the draw: the
 geometry head's bias is a word-sized quad (the port's random init gives
-sub-pixel boxes, which no word survives), and ``FusedOCR.calibrate`` picks
-the threshold among the first page's score-map quantiles (random scores sit
-near 0.5, below every default threshold) for at most 250 words.
+sub-pixel boxes, which no word survives), and ``calibrate`` searches the
+detector's threshold on the first page's score map (random scores sit near
+0.5, below every default threshold) until its eligible-word count lies in
+``BENCH_WORDS``. Every bench page must then count words in that range, the
+auto capacity must come out at ``BENCH_CAPACITY`` slots and no word may be
+dropped, or the bench raises before it times anything: a workload that
+drifts with the weights is not measured. Every metric line, the
+``PERF_GATE`` line and the raw file carry ``words_per_page`` (the median of
+the pages' counts), ``word_capacity`` and ``box_capacity``.
 
 MFU is FLOPs a page (or a training step) times pages (steps) a second over
 989e12, the H100 SXM dense bfloat16 peak: all FLOPs are divided by that one
@@ -39,18 +45,18 @@ uploads the plain uint8 page). Raw timings go to
 
 ``MANUSCRIPT_TPU_BENCH_SMOKE=1`` runs the same code on the CPU at tiny shapes
 (``resnet50-tiny`` at 128² with 256 boxes, TRBA ``micro`` at hidden 64 on
-32×128 crops for 8 steps, 256×192 pages, 16 word slots, fewer repeats) to
-test the harness: its numbers are CPU numbers, not the card's. Without it
-the bench needs a card and raises without one.
+32×128 crops for 8 steps, 256×192 pages, ``SMOKE_WORDS`` words on 16 pinned
+word slots, fewer repeats) to test the harness: its numbers are CPU numbers,
+not the card's. Without it the bench needs a card and raises without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import os
 import statistics
-import sys
 import threading
 import time
 import urllib.error
@@ -68,7 +74,17 @@ REFERENCE_PAGES_PER_SEC = 1.0 / 0.604  # the reference's Colab EAST mean, 0.604 
 PEAK_FLOPS_BF16 = 989e12  # H100 SXM, dense bfloat16 (NVIDIA data sheet, at 700 W)
 MFU_UNIT = "fraction_of_h100_bf16_dense_peak"
 MFU_LIMIT = 1.05
-SCORE_QUANTILES = (0.99, 0.995, 0.998, 0.999, 0.9995)
+# eligible words a bench page: from the count the bench's first runs on the
+# card timed up to the most that the 128-slot bucket holds with its headroom
+# (FusedOCR.CAPACITY_HEADROOM), so that the auto capacity is 128 slots
+BENCH_WORDS = (84, 120)
+BENCH_CAPACITY = 128
+# smoke pages hold one word block at 128²: random scores give 1-12 boxes
+SMOKE_WORDS = (4, 10)
+SMOKE_CAPACITY = 16
+# the threshold search: thresholds a count program, count programs at most
+CALIBRATION_GRID = 8
+CALIBRATION_ROUNDS = 4
 
 
 def build_page(seed: int = 0, h: int = 2560, w: int = 1920):
@@ -113,12 +129,12 @@ def timed(fn, n_iters: int = 12, warmup: int = 1):
 
 
 class Emitter:
-    """Prints one JSON line per metric, each with the device's name; values
-    keep 6 significant digits (a small MFU would round to 0 at the JAX
-    bench's 4 decimals)."""
+    """Prints one JSON line per metric, each with the device's name and the
+    ``workload`` keys given; values keep 6 significant digits (a small MFU
+    would round to 0 at the JAX bench's 4 decimals)."""
 
-    def __init__(self, device: str, smoke: bool):
-        self.device, self.smoke = device, smoke
+    def __init__(self, device: str, smoke: bool, workload=None):
+        self.device, self.smoke, self.workload = device, smoke, workload or {}
 
     def __call__(self, metric, value, unit, vs_baseline=None, **extra):
         value = float(value)
@@ -128,6 +144,7 @@ class Emitter:
         if vs_baseline is not None:
             line["vs_baseline"] = round(vs_baseline, 3)
         line.update(extra)
+        line.update(self.workload)
         line["device"] = self.device
         if self.smoke:
             line["smoke"] = True
@@ -149,21 +166,30 @@ def word_sized_geometry(east) -> None:
         east.model.geo_head.bias.copy_(torch.tensor([-12.0, -4, 12, -4, 12, 4, -12, 4]))
 
 
-def score_quantiles(east, page) -> tuple:
-    """Calibration thresholds: the upper quantiles of ``page``'s score map."""
+def page_scores(east, page) -> np.ndarray:
+    """``page``'s score map, flattened and sorted from the highest score."""
     from .ops.image import detector_preprocess_host
 
     x = torch.from_numpy(detector_preprocess_host(page, east.target_size)).to(east.device)
     with torch.inference_mode():
         score, _ = east.maps(x[None])
-    q = torch.quantile(score.flatten().float().cpu(), torch.tensor(SCORE_QUANTILES))
-    return tuple(sorted({round(float(v), 6) for v in q}))
+    return np.sort(score.flatten().float().cpu().numpy().astype(np.float64))[::-1]
 
 
-def models(smoke: bool, device=None):
-    """Device, random-weight EAST and TRBA (the geometry made word-sized)
-    and the 6 bench pages; on ``device`` when given, else the CPU in smoke
-    mode and the card otherwise."""
+def page_words(fused, page, thresholds) -> np.ndarray:
+    """``page``'s eligible-word count at each threshold: one count program
+    (``FusedOCR._count_words``, as ``FusedOCR.calibrate`` runs it)."""
+    from .ops.image import detector_preprocess_host
+
+    size = fused.detector.target_size
+    return fused._count_words(detector_preprocess_host(page, size), tuple(thresholds),
+                              page.shape[1] / size, page.shape[0] / size)
+
+
+def models(smoke: bool, device=None, seed: int = 0):
+    """Device, random-weight EAST (init ``seed``) and TRBA (``seed + 1``),
+    the geometry made word-sized, and the 6 bench pages; on ``device`` when
+    given, else the CPU in smoke mode and the card otherwise."""
     from .detectors import EAST
     from .recognizers import TRBA
     from .utils.device import resolve_device
@@ -178,30 +204,97 @@ def models(smoke: bool, device=None):
     east = EAST(
         device=dev, target_size=128 if smoke else 1280, max_candidates=256 if smoke else 4096,
         max_boxes=256 if smoke else 1024, dtype=torch.bfloat16,
-        backbone="resnet50-tiny" if smoke else "resnet50", allow_random_init=True, seed=0,
+        backbone="resnet50-tiny" if smoke else "resnet50", allow_random_init=True, seed=seed,
     )
     tiny = dict(cnn_stage_plan="micro", hidden_size=64, img_h=32, img_w=128, max_length=8)
-    trba = TRBA(device=dev, dtype=torch.bfloat16, allow_random_init=True, seed=1,
+    trba = TRBA(device=dev, dtype=torch.bfloat16, allow_random_init=True, seed=seed + 1,
                 **(tiny if smoke else {}))
     word_sized_geometry(east)
     pages = [build_page(i, h=256, w=192) if smoke else build_page(i) for i in range(6)]
     return dev, east, trba, pages
 
 
-def calibrate(fused, page):
-    """``FusedOCR.calibrate`` among ``page``'s score-map quantiles, for at
-    most 250 words → (threshold, {threshold: count})."""
-    return fused.calibrate(page, score_quantiles(fused.detector, page), target_max_words=250)
+def calibrate(fused, page, words=None):
+    """Search the detector's threshold on ``page`` for an eligible-word count
+    within ``words`` (``(low, high)``; ``SMOKE_WORDS`` in smoke mode, else
+    ``BENCH_WORDS``), nearest the range's middle, and set it with
+    ``FusedOCR.calibrate`` (which sizes an auto capacity from its count).
+
+    Each threshold lies between two neighbouring scores of the page's score
+    map, so that k score pixels lie above it. A round runs one count program
+    at ``CALIBRATION_GRID`` k's spaced geometrically over the bracket, then
+    narrows the bracket to the two neighbouring k's whose counts straddle the
+    middle, from the highest threshold down (counts need not fall
+    monotonically with the threshold). Raises, naming every count, when no
+    threshold lands in range → (threshold, {threshold: count})."""
+    low, high = words or (SMOKE_WORDS if is_smoke() else BENCH_WORDS)
+    middle = (low + high) / 2
+    scores = page_scores(fused.detector, page)
+
+    def thresh(k: int) -> float:
+        return float((scores[k - 1] + scores[k]) / 2)
+
+    counts = {}  # k → eligible words
+    k_low, k_high = 1, len(scores) // 2
+    for _ in range(CALIBRATION_ROUNDS):
+        ks = sorted(set(np.geomspace(k_low, k_high, CALIBRATION_GRID).round().astype(int).tolist())
+                    - set(counts))
+        if not ks:
+            break
+        counts.update(zip(ks, page_words(fused, page, [thresh(k) for k in ks]).tolist()))
+        seen = sorted(counts)
+        reach = next((i for i, k in enumerate(seen) if counts[k] >= middle), None)
+        if not reach:  # no count reaches the middle, or the highest threshold does
+            break
+        k_low, k_high = seen[reach - 1], seen[reach]
+        if k_high - k_low <= 1:
+            break
+    table = {round(thresh(k), 6): counts[k] for k in sorted(counts)}
+    inside = [k for k in sorted(counts) if low <= counts[k] <= high]
+    if not inside:
+        raise RuntimeError(f"bench: no threshold gives {low}..{high} words on the first page; "
+                           f"words by threshold: {table}")
+    best = min(inside, key=lambda k: abs(counts[k] - middle))
+    fused.calibrate(page, (thresh(best),), target_max_words=high)
+    return thresh(best), table
 
 
-def setup(smoke: bool):
-    """``models`` and the calibrated default ``FusedOCR``."""
+def pin_workload(fused, pages, words=None, capacity=None) -> dict:
+    """``calibrate`` on the first page, then hold the workload to it before
+    anything is timed: every page counts ``words`` at the threshold, and a
+    warm ``predict_many`` of the pages leaves the word capacity at
+    ``capacity`` (``SMOKE_CAPACITY`` in smoke mode, else ``BENCH_CAPACITY``)
+    with no word dropped. Raises with the counts otherwise → the workload's
+    numbers for the metric lines and the raw file."""
+    smoke = is_smoke()
+    low, high = words = words or (SMOKE_WORDS if smoke else BENCH_WORDS)
+    capacity = capacity or (SMOKE_CAPACITY if smoke else BENCH_CAPACITY)
+    thresh, table = calibrate(fused, pages[0], words)
+    counts = [int(page_words(fused, p, (thresh,))[0]) for p in pages]
+    if not all(low <= n <= high for n in counts):
+        raise RuntimeError(f"bench: words a page {counts} at threshold {thresh:.6f} leave "
+                           f"{low}..{high} (first page's words by threshold: {table})")
+    fused.predict_many(pages)  # warm: cuDNN plans, the allocator, the capacity
+    if fused.max_words != capacity or fused.last_dropped or fused.last_overflow:
+        raise RuntimeError(f"bench: words a page {counts} gave {fused.max_words} word slots "
+                           f"(want {capacity}) and dropped {fused.last_overflow} words")
+    return {"calibrated_thresh": thresh, "threshold_counts": table, "page_words": counts,
+            "words_per_page": statistics.median(counts), "word_capacity": fused.max_words,
+            "box_capacity": fused.detector.max_boxes}
+
+
+# what every metric line and the PERF_GATE line say of the workload
+WORKLOAD_KEYS = ("words_per_page", "word_capacity", "box_capacity")
+
+
+def setup(smoke: bool, seed: int = 0):
+    """``models`` and the default ``FusedOCR`` on the pinned workload
+    (``pin_workload``) → (device, EAST, TRBA, pages, fused, workload)."""
     from .fused import FusedOCR
 
-    dev, east, trba, pages = models(smoke)
-    fused = FusedOCR(east, trba, max_words=16 if smoke else "auto")
-    thresh, counts = calibrate(fused, pages[0])
-    return dev, east, trba, pages, fused, thresh, counts
+    dev, east, trba, pages = models(smoke, seed=seed)
+    fused = FusedOCR(east, trba, max_words=SMOKE_CAPACITY if smoke else "auto")
+    return dev, east, trba, pages, fused, pin_workload(fused, pages)
 
 
 def link_probe(fused, page, n: int = 4):
@@ -412,7 +505,7 @@ def npy_body(page) -> bytes:
     return buf.getvalue()
 
 
-def main():
+def main(seed: int = 0):
     from .fused import FusedOCR
     from .pipeline import Pipeline
     from .utils.compile_cache import enable_compile_cache
@@ -422,21 +515,16 @@ def main():
     smoke = is_smoke()
     raw = {"note": "all vs_baseline values divide by the reference's only recorded number: "
                    "EAST-only Colab mean 0.604 s/page"}
-    dev, east, trba, pages, fused, thresh, counts = setup(smoke)
-    emit = Emitter(card_name(dev), smoke)
+    dev, east, trba, pages, fused, workload = setup(smoke, seed)
+    emit = Emitter(card_name(dev), smoke, {k: workload[k] for k in WORKLOAD_KEYS})
     raw["device"] = emit.device
+    raw["seed"] = seed
     n_pages = 4 if smoke else 24
-    raw["calibrated_thresh"] = thresh
-    raw["threshold_counts"] = {str(k): v for k, v in counts.items()}
-    raw["word_capacity"] = fused.max_words
-    raw["box_capacity"] = east.max_boxes
+    raw.update(workload)
     raw["channel_folded"] = False  # the port uploads the plain uint8 page
 
     probe0, raw["link_probe_start_s"] = link_probe(fused, pages[0])
-    page0 = fused.predict(pages[0])  # warm: cuDNN plans, the allocator
-    if not smoke and fused.last_dropped:
-        raise RuntimeError(f"bench: auto capacity {fused.max_words} dropped "
-                           f"{fused.last_dropped} words")
+    page0 = fused.predict(pages[0])
 
     # ---- primary: the Pipeline default, median of 3 runs of 24 pages
     chunk = pages[: fused.batch_pages]
@@ -516,9 +604,14 @@ def main():
          crop_scale=2)
 
     # ---- quality: the committed micro checkpoints on 8 held-out pages, as
-    # chip_smoke.py phase 7 runs them (TF32 off)
+    # chip_smoke.py phase 7 runs them (TF32 off); skipped without them, as
+    # outside a checkout
+    from .utils.quality import QUALITY_DIR, quality_ckpts_available
+
     if smoke:
         raw["quality_skipped"] = "smoke mode"
+    elif not quality_ckpts_available():
+        raw["quality_skipped"] = f"no micro checkpoints in {QUALITY_DIR}"
     else:
         from .utils.quality import evaluate_quality, load_quality_models
 
@@ -601,23 +694,23 @@ def main():
     return primary
 
 
-def perf_gate():
+def perf_gate(seed: int = 0):
     """The two numbers of the card's regression gate, device-only pages/s and
-    the program's MFU, as one ``PERF_GATE {...}`` line
-    (``tests/test_torch_cuda.py`` holds them to floors)."""
+    the program's MFU, on the bench's pinned workload, as one ``PERF_GATE
+    {...}`` line (``tests/test_torch_cuda.py`` holds them to floors)."""
     from .utils.compile_cache import enable_compile_cache
 
     enable_compile_cache(None)
     smoke = is_smoke()
-    dev, east, trba, pages, fused, thresh, _ = setup(smoke)
-    fused.predict(pages[0])  # warm
+    dev, east, trba, pages, fused, workload = setup(smoke, seed)
     pps, _ = device_only_throughput(fused, pages)
     flops = flops_of(lambda: fused.predict(pages[0]))
     out = {
         "device_only_pages_per_sec": round(pps, 3),
         "program_mfu": round(mfu(flops, pps, "fused program"), 6),
         "flops_per_page": flops,
-        "word_capacity": fused.max_words,
+        **{k: workload[k] for k in WORKLOAD_KEYS},
+        "seed": seed,
         "backend": dev.type,
         "device": card_name(dev),
     }
@@ -628,7 +721,9 @@ def perf_gate():
 
 
 if __name__ == "__main__":
-    if "--perf-gate" in sys.argv:
-        perf_gate()
-    else:
-        main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--perf-gate", action="store_true", help="print only the PERF_GATE line")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="init seed of the random weights: EAST's, and TRBA's plus one")
+    args = ap.parse_args()
+    (perf_gate if args.perf_gate else main)(args.seed)

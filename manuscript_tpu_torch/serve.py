@@ -38,6 +38,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+# how long shutdown() waits for the batcher's, then the finisher's, batch
+JOIN_TIMEOUT_S = 30.0
+
 
 @dataclass
 class _Job:
@@ -109,6 +112,8 @@ class OCRServer:
         self._queue: "queue.Queue[_Job]" = queue.Queue(maxsize=max_queue)
         self._submit_lock = threading.Lock()
         self._stop = threading.Event()
+        self._shutdown_lock = threading.Lock()
+        self._shut_down = False
         self._worker = threading.Thread(target=self._drain_loop, name="ocr-batcher", daemon=True)
         # one started batch waits while one finishes: a bounded device queue
         self._pipelined = hasattr(pipeline, "start_batch") and hasattr(pipeline, "finish_batch")
@@ -320,6 +325,8 @@ class OCRServer:
                 continue
             while not self._stop.is_set():
                 try:
+                    # a stop that lands after the check may let the finisher
+                    # leave before this put: shutdown() finishes what is left
                     self._inflight.put((batch, handle), timeout=0.2)
                     break
                 except queue.Full:
@@ -396,6 +403,25 @@ class OCRServer:
         self._http_thread.start()
 
     def shutdown(self):
+        """Stop serving (idempotent): stop the HTTP server, let the batcher
+        end, finish here every started batch that the finisher did not take,
+        so that each of its clients gets its page or its error, then let the
+        finisher end. A batch is finished once: by the finisher, the batcher
+        or here, whichever takes it from the queue."""
+        with self._shutdown_lock:
+            if self._shut_down:
+                return
+            self._shut_down = True
         self._stop.set()
         self._httpd.shutdown()
         self._httpd.server_close()
+        if self._worker.is_alive():
+            self._worker.join(JOIN_TIMEOUT_S)
+        while True:
+            try:
+                batch, handle = self._inflight.get_nowait()
+            except queue.Empty:
+                break
+            self._finish(batch, handle)
+        if self._finisher.is_alive():
+            self._finisher.join(JOIN_TIMEOUT_S)

@@ -31,6 +31,16 @@ def quality_reference() -> Dict:
     return json.loads(QUALITY_REFERENCE.read_text())
 
 
+QUALITY_FILES = ("east_micro.json", "east_micro.msgpack", "trba_micro.msgpack")
+
+
+def quality_ckpts_available(directory: Union[str, Path] = QUALITY_DIR) -> bool:
+    """Whether ``directory`` holds both micro checkpoints and the detector's
+    ``east_micro.json``: the committed ones are data of a checkout, which an
+    installed package does not ship."""
+    return all((Path(directory) / name).exists() for name in QUALITY_FILES)
+
+
 def load_quality_models(
     device: Optional[Union[str, torch.device]] = None, dtype: torch.dtype = torch.float32,
     directory: Union[str, Path] = QUALITY_DIR,
@@ -39,11 +49,19 @@ def load_quality_models(
     ones by default; ``examples/torch_port/make_quality_ckpt.py`` writes
     others) on ``device`` (the card by default). ``east_micro.json`` holds
     the detector's training settings; the TRBA checkpoint carries its own
-    charset and config."""
+    charset and config. Raises ``FileNotFoundError`` naming a missing
+    file's full path."""
     from ..detectors import EAST
     from ..recognizers import TRBA
 
-    directory = Path(directory)
+    directory = Path(directory).resolve()
+    for name in QUALITY_FILES:
+        if not (directory / name).exists():
+            raise FileNotFoundError(
+                f"quality checkpoint {directory / name} is missing: the micro checkpoints live "
+                "in a checkout of the repository under manuscript_tpu/configs/quality/; pass "
+                "that directory (or one that make_quality_ckpt.py wrote) as directory="
+            )
     meta = json.loads((directory / "east_micro.json").read_text())
     east = EAST(
         directory / "east_micro.msgpack",

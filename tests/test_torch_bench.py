@@ -1,6 +1,8 @@
 """The port's measuring tools on the CPU: the bench and the serving bench in
 smoke mode (``MANUSCRIPT_TPU_BENCH_SMOKE=1``, tiny shapes, subprocesses),
-the kernel build cache, and the kernels' FLOP and byte counts against hand
+the bench's pinned workload (the threshold search lands in its word range
+under different weight draws, and raises where no threshold does), the
+kernel build cache, and the kernels' FLOP and byte counts against hand
 counts. Only the card gives the bench's numbers; here the harness runs."""
 
 import json
@@ -11,7 +13,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+from manuscript_tpu_torch import bench
 from manuscript_tpu_torch.ops import _build
 from manuscript_tpu_torch.ops import attention_step as k1
 from manuscript_tpu_torch.ops import quad_iou as k2
@@ -56,6 +60,7 @@ def test_smoke_bench_prints_the_jax_metrics_primary_first():
     for ln in lines:
         assert f'"{ln["metric"]}"' in jax_bench, ln["metric"]
         assert np.isfinite(ln["value"]) and ln["device"] == "cpu" and ln["smoke"] is True
+        _assert_smoke_workload(ln)
     assert lines[0]["unit"] == "pages/s" and "vs_baseline" in lines[0]
     for ln in lines:
         if ln["metric"].endswith("_mfu"):
@@ -66,6 +71,8 @@ def test_smoke_bench_prints_the_jax_metrics_primary_first():
     raw = json.loads(raw_path.read_text())
     assert raw["channel_folded"] is False and raw["flops_per_page"] > 0
     assert len(raw["fused_batch_s"]) == 3 and raw["quality_skipped"] == "smoke mode"
+    _assert_smoke_workload(raw)
+    assert len(raw["page_words"]) == 6 and raw["seed"] == 0
 
 
 def test_smoke_perf_gate_line():
@@ -74,9 +81,64 @@ def test_smoke_perf_gate_line():
     assert len(gate) == 1
     got = json.loads(gate[0][len("PERF_GATE "):])
     assert set(got) == {"device_only_pages_per_sec", "program_mfu", "flops_per_page",
-                        "word_capacity", "backend", "device", "smoke"}
-    assert got["backend"] == "cpu" and got["word_capacity"] == 16
+                        "words_per_page", "word_capacity", "box_capacity", "seed", "backend",
+                        "device", "smoke"}
+    assert got["backend"] == "cpu" and got["seed"] == 0
+    _assert_smoke_workload(got)
     assert got["device_only_pages_per_sec"] > 0 and 0 < got["program_mfu"] <= 1.05
+
+
+def _assert_smoke_workload(line):
+    low, high = bench.SMOKE_WORDS
+    assert low <= line["words_per_page"] <= high, line
+    assert line["word_capacity"] == bench.SMOKE_CAPACITY == 16 and line["box_capacity"] == 256
+
+
+@pytest.fixture()
+def smoke_models(monkeypatch):
+    """The bench's smoke-size models for an init seed, on one torch thread;
+    the variables that ``bench.models`` sets are restored afterwards."""
+    monkeypatch.setenv("MANUSCRIPT_TPU_NO_DOWNLOAD", "1")
+    monkeypatch.setenv("MANUSCRIPT_TPU_ALLOW_RANDOM_INIT", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield lambda seed: bench.models(True, seed=seed)
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_pinned_workload_holds_under_another_weight_draw(smoke_models, seed):
+    """The threshold search on the first page lands in the smoke word range
+    for each draw, every page counts words in it, and the auto capacity comes
+    out at the same bucket with no word dropped."""
+    from manuscript_tpu_torch.fused import FusedOCR
+
+    _, east, trba, pages = smoke_models(seed)
+    fused = FusedOCR(east, trba, max_words="auto")
+    got = bench.pin_workload(fused, pages, bench.SMOKE_WORDS, capacity=32)
+    low, high = bench.SMOKE_WORDS
+    assert east.score_thresh == got["calibrated_thresh"]
+    assert got["threshold_counts"][round(got["calibrated_thresh"], 6)] == got["page_words"][0]
+    assert len(got["page_words"]) == 6 and all(low <= n <= high for n in got["page_words"])
+    assert got["word_capacity"] == fused.max_words == 32 and fused.last_dropped == 0
+    assert len(got["threshold_counts"]) <= bench.CALIBRATION_GRID * bench.CALIBRATION_ROUNDS
+
+
+def test_workload_out_of_reach_raises_with_the_counts(smoke_models):
+    from manuscript_tpu_torch.fused import FusedOCR
+
+    _, east, trba, pages = smoke_models(0)
+    fused = FusedOCR(east, trba, max_words="auto")
+    with pytest.raises(RuntimeError, match=r"no threshold gives 500\.\.600 words") as err:
+        bench.calibrate(fused, pages[0], (500, 600))
+    assert "words by threshold: {" in str(err.value)
+    assert fused.max_words is None  # nothing was sized before the raise
+    # a capacity other than the one that the range sizes stops the bench too
+    with pytest.raises(RuntimeError, match=r"words a page \[\d+(, \d+){5}\] gave 32 word "
+                                           r"slots \(want 64\)"):
+        bench.pin_workload(fused, pages, bench.SMOKE_WORDS, capacity=64)
 
 
 def test_smoke_serve_bench_npy():

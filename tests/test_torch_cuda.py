@@ -276,8 +276,10 @@ def test_host_lanms_library_builds_and_loads(cuda):
                                   lanms.locality_aware_nms_numpy(rows, 0.2))
 
 
-# 90 % of the PERF_GATE line of the bench's first run on the card (NVIDIA
-# H100 80GB HBM3, 700.00 W): 36.695 pages/s and an MFU of 0.148851 (PERF.md)
+# 90 % of the PERF_GATE line of the bench's first run on the card, 36.695
+# pages/s and an MFU of 0.148851 (a later run read 38.066 / 0.154413), at 128
+# word slots and ~4.0e12 FLOPs a page (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6): the floors hold on the workload that the bench pins
 DEVICE_ONLY_FLOOR = 33.0
 PROGRAM_MFU_FLOOR = 0.134
 
@@ -286,7 +288,10 @@ def test_perf_gate_floors(cuda):
     """``python -m manuscript_tpu_torch.bench --perf-gate`` at full size: the
     device-only pages/s of the device-crop page program (inputs held on the
     card, the host's eager launches included) and its MFU stay above floors,
-    as tests/test_perf_gate.py holds the JAX package's."""
+    as tests/test_perf_gate.py holds the JAX package's, on the bench's pinned
+    workload (``BENCH_CAPACITY`` word slots, ``BENCH_WORDS`` words a page)."""
+    from manuscript_tpu_torch.bench import BENCH_CAPACITY, BENCH_WORDS
+
     env = {k: v for k, v in os.environ.items() if k != "MANUSCRIPT_TPU_BENCH_SMOKE"}
     run = subprocess.run([sys.executable, "-m", "manuscript_tpu_torch.bench", "--perf-gate"],
                          cwd=Path(__file__).resolve().parent.parent, env=env,
@@ -295,5 +300,7 @@ def test_perf_gate_floors(cuda):
     line = next(ln for ln in run.stdout.splitlines() if ln.startswith("PERF_GATE "))
     gate = json.loads(line[len("PERF_GATE "):])
     assert gate["backend"] == "cuda" and gate["device"].startswith(torch.cuda.get_device_name(0))
+    assert gate["word_capacity"] == BENCH_CAPACITY == 128, gate
+    assert BENCH_WORDS[0] <= gate["words_per_page"] <= BENCH_WORDS[1], gate
     assert gate["device_only_pages_per_sec"] >= DEVICE_ONLY_FLOOR, gate
     assert PROGRAM_MFU_FLOOR <= gate["program_mfu"] <= 1.05, gate

@@ -15,6 +15,7 @@ and the ``slow`` test below computes it again and compares.
 """
 
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -60,6 +61,26 @@ def test_render_page_is_byte_equal_to_jax(seed):
     for a, b in zip(got_gt, ref_gt):
         np.testing.assert_array_equal(a["quad"], b["quad"])
     assert ts.VOCAB == js.VOCAB
+
+
+def test_quality_ckpts_available_and_the_missing_file_named(tmp_path):
+    """A checkout holds the micro checkpoints, as the JAX package finds them;
+    a directory without them is not available, and loading from it raises
+    with the full path of the first missing file and where to find them."""
+    assert tq.quality_ckpts_available() and jq.quality_ckpts_available()
+    assert tq.QUALITY_DIR.resolve() == jq.QUALITY_DIR.resolve()
+    assert not tq.quality_ckpts_available(tmp_path)
+    for present in ((), ("east_micro.json", "east_micro.msgpack")):
+        for name in present:
+            shutil.copy(tq.QUALITY_DIR / name, tmp_path / name)
+        missing = "trba_micro.msgpack" if present else "east_micro.json"
+        assert not tq.quality_ckpts_available(str(tmp_path))
+        with pytest.raises(FileNotFoundError) as err:
+            tq.load_quality_models("cpu", directory=tmp_path)
+        assert str(tmp_path.resolve() / missing) in str(err.value)
+        assert all(s in str(err.value) for s in ("manuscript_tpu/configs/quality/", "directory="))
+    shutil.copy(tq.QUALITY_DIR / "trba_micro.msgpack", tmp_path)
+    assert tq.quality_ckpts_available(tmp_path)
 
 
 def test_edit_distance_matches_jax():

@@ -6,6 +6,7 @@ each served text equals ``Pipeline.predict``'s for the same page."""
 
 import io
 import json
+import queue
 import threading
 import time
 import urllib.request
@@ -477,6 +478,38 @@ def test_pipelined_errors_are_500_and_worker_survives(stage):
         assert code == 200
     finally:
         srv.shutdown()
+
+
+def test_stop_between_the_check_and_the_put_strands_no_batch():
+    """A stop that lands after the batcher's stop check and before its put of
+    a started batch, once the finisher has left: ``shutdown()`` finishes the
+    batch, so that each client gets its page within a second, and finishes
+    it once; a second ``shutdown()`` does nothing."""
+    pipe = PipelinedStub()
+    finished = []
+    finish_batch = pipe.finish_batch
+    pipe.finish_batch = lambda handle: finished.append(handle) or finish_batch(handle)
+    srv = OCRServer(pipe, host="127.0.0.1", port=0, batch_pages=2, batch_wait_ms=200.0)
+    put = threading.Event()
+
+    class StopBeforePut(queue.Queue):
+        def put(self, item, block=True, timeout=None):
+            srv._stop.set()
+            srv._finisher.join(timeout=5)  # stop set, nothing in flight: it leaves
+            super().put(item, block, timeout)
+            put.set()
+
+    srv._inflight = StopBeforePut(maxsize=1)
+    srv.start_background()
+    jobs = [srv.submit(np.zeros((24, 32, 3), np.uint8)) for _ in range(2)]
+    assert put.wait(10) and not srv._finisher.is_alive()
+    t0 = time.time()
+    srv.shutdown()
+    assert all(job.done.wait(max(0.0, t0 + 1.0 - time.time())) for job in jobs)
+    assert [job.result.blocks[0].words[0].text for job in jobs] == ["32x24", "32x24"]
+    assert len(finished) == 1 and [e[0] for e in pipe.events].count("finish") == 1
+    srv.shutdown()
+    assert len(finished) == 1 and not srv._worker.is_alive()
 
 
 def test_healthz_names_the_torch_device():

@@ -5,6 +5,8 @@
   name that ``manuscript_tpu/ops/__init__.py`` imports, exists in the
   matching package of the port, under the port's name where ``RENAMED``
   gives one (one case per name).
+* Every public name that ``manuscript_tpu/utils/quality.py`` defines
+  (functions, classes, constants) exists in the port's ``utils.quality``.
 * ``quad_to_rbox`` gives cv2's ``minAreaRect`` (the JAX package's function)
   on random quads, cv2 5's angle convention included: centre, sides and
   angle within 2e-3 (float32 steps of the calipers); ``batch_resize_and_pad``
@@ -48,6 +50,28 @@ SURFACE = (
     + [("recognizers", name) for name in manuscript_tpu.recognizers.__all__]
     + [("ops", name) for name in _ops_imports()]
 )
+
+
+JAX_QUALITY = Path(manuscript_tpu.__file__).parent / "utils" / "quality.py"
+
+
+def _defined_names(path):
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("name", _defined_names(JAX_QUALITY))
+def test_every_public_name_of_the_quality_module_exists_in_the_port(name):
+    from manuscript_tpu.utils import quality as jax_quality
+    from manuscript_tpu_torch.utils import quality
+
+    assert hasattr(quality, name), f"manuscript_tpu_torch.utils.quality: {name}"
+    assert callable(getattr(quality, name)) == callable(getattr(jax_quality, name))
 
 
 @pytest.mark.parametrize("package,name", SURFACE, ids=[f"{p or 'root'}.{n}" for p, n in SURFACE])
