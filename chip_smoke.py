@@ -16,8 +16,12 @@ run with a traceback and a non-zero exit:
    entry at the NMS's sizes for one page and for a chunk of 4 pages (per-page
    live counts) beside the same call made of torch gathers and the pairs
    kernel, and the matrix entry at 1024×1024; K3 (the scan LANMS's merge
-   walk) at 2048 and 8192 candidates, max_out 1024, against its plain loop
-   (timed once with CUDA events): equal counts, quads within 1e-3 px;
+   walk) at 2048 and 8192 candidates and on a page of 8192 that is one
+   unbroken chain, max_out 1024: its chunked walks bit-equal to one
+   thread's walk (both timed), and against its plain loop (timed once with
+   CUDA events; the chain's first 2048 rows): equal counts, quads within
+   1e-3 px; the longest merged
+   run and the fix-up rounds and rows from the kernel's record;
 3. full width with random weights from a seed: EAST resnet50 at 1280² (q=2,
    8192 candidates, 1024 boxes, bf16) and TRBA full (64×256, hidden 256,
    194 tokens, beam 8, max_len 25); first the recognizer's first and second
@@ -114,12 +118,16 @@ run with a traceback and a non-zero exit:
    configuration, batch 64: forward, backward, optimizer), 2 EAST ASAM
    steps at the trainer's defaults (first pass, second pass, update) and one
    ``process_batch`` of 4 full-width pages (phase A, phase B and its device
-   launches), each with its top 10 kernels; ``python -m manuscript_tpu_torch
-   bench`` at full size as a subprocess (every line finite and naming the
-   card, the primary first, every MFU in (0, 1.05], the micro checkpoints'
-   quality lines equal to ``configs/quality_reference.json`` within phase
-   7's tolerances) and its ``--perf-gate``; the serving bench with ``.npy``
-   and PNG bodies (8 clients, 10 s each, no failed request); a decode sweep
+   launches), each with its top 10 kernels; the bench's ``--perf-gate``
+   (the pinned workload, an MFU in (0, 1.05]); the serving bench with
+   ``.npy`` and PNG bodies (8 clients, 10 s each, no failed request); these
+   three each alone on the card; then ``python -m manuscript_tpu_torch
+   bench`` at full size as a subprocess that runs on beside the rest of
+   this phase and phases 13 and 14, and is read after them (every line
+   finite and naming the card, the primary first, every MFU in (0, 1.05],
+   the micro checkpoints' quality lines equal to
+   ``configs/quality_reference.json`` within phase 7's tolerances; its
+   times there are no measurements: the bench alone gives those); a decode sweep
    (``utils.sweep.Study``, sqlite, 8 trials over mode, beam size, alpha and
    temperature) on the micro TRBA and 64 rendered crops, K1's steps counted
    around each trial, and ``sweep-report`` naming its best trial; and the
@@ -631,36 +639,75 @@ def candidate_field(rng, n: int, words: int, size: float = 1280.0) -> np.ndarray
     return np.concatenate([rows, rng.uniform(0.5, 1, (n, 1))], 1).astype(np.float32)
 
 
+def one_chain_field(rng, n: int) -> np.ndarray:
+    """``n`` jittered copies of one word box (n, 9), scores in [0.5, 1): a
+    page whose merge walk never breaks, K3's worst case."""
+    base = np.array([600, 600, 700, 600, 700, 630, 600, 630], np.float64)
+    rows = base + rng.normal(0, 2.0, (n, 8))
+    return np.concatenate([rows, rng.uniform(0.5, 1, (n, 1))], 1).astype(np.float32)
+
+
 def k3_rows(torch, k3, rng, dev) -> dict:
     """Phase 2, K3: the scan LANMS's merge walk at 2048 and 8192 candidates
-    (all live, 16 candidates a word), max_out 1024, against its plain loop.
-    The bound counts one clip (860 f32 operations, as K2's) per live step."""
+    (all live, 16 candidates a word) and on a page of 8192 that is one
+    unbroken chain, max_out 1024. The kernel's default chunks are held
+    bit-equal to one thread's walk (``_chunk=K``) and within 1e-3 px of the
+    plain loop (equal counts; on the chain's first 2048 rows), both kernels
+    timed; the longest merged run,
+    the fix-up rounds and the rows of each re-walk come from the kernel's
+    own record. The bound counts one clip (860 f32 operations, as K2's) per
+    live step. → {field: (ms, plain ms, bound ms, bound by, max |d|)}."""
     from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
 
     rows_out = {}
-    for n in (2048, 8192):
-        cands = torch.from_numpy(candidate_field(rng, n, n // 16)).to(dev)[None]
+    for field, n in ((2048, 2048), (8192, 8192), ("one chain", 8192)):
+        # the chain draws from its own generator: the later phases' draws stay as they were
+        fresh = (one_chain_field(np.random.default_rng(1), n) if field == "one chain"
+                 else candidate_field(rng, n, n // 16))
+        cands = torch.from_numpy(fresh).to(dev)[None]
         inf = torch.full_like(cands[..., 0], float("inf"))
         key = torch.where(cands[..., 8] >= 0, cands[..., 0], inf)
         rows = cands[:, torch.sort(key, dim=1, stable=True).indices[0]].contiguous()
-        pk, sk, mk = k3.lanms_merge_scan_cuda(rows, 0.2, 1024)
+        record = {}
+        pk, sk, mk = k3.lanms_merge_scan_cuda(rows, 0.2, 1024, _stats=record)
+        walk = k3.lanms_merge_scan_cuda(rows, 0.2, 1024, _chunk=n)
+        check(all(torch.equal(a, b) for a, b in zip((pk, sk, mk), walk)), (field, mk, walk[2]))
+        slow = field == "one chain"
+        # the chain's plain loop runs on its first 2048 rows (a chain too): its
+        # kernel is held to one thread's walk above, and the loop costs ~5 ms
+        # a row, which the script's time limit cannot spare at 8192
+        held = rows[:, :2048].contiguous() if slow else rows
+        hk, hs, hm = k3.lanms_merge_scan_cuda(held, 0.2, 1024) if slow else (pk, sk, mk)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        pp, sp, mp = k3.lanms_merge_scan_plain(rows, 0.2, 1024)
+        with torch.inference_mode():  # as EAST.predict runs it
+            pp, sp, mp = k3.lanms_merge_scan_plain(held, 0.2, 1024)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
-        check(torch.equal(mk, mp), (mk, mp))
-        m = min(int(mk[0]), 1024)
-        err = max((pk - pp)[0, :m].abs().max().item(), (sk - sp)[0, :m].abs().max().item())
+        check(torch.equal(hm, mp), (hm, mp))
+        m = min(int(hm[0]), 1024)
+        err = max((hk - pp)[0, :m].abs().max().item(), (hs - sp)[0, :m].abs().max().item())
         check(err <= 1e-3, err)
-        ms = graph_time_ms(lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024), calls=5, replays=5)
+        rounds, rewalks, rewalked, most, chunk = record["fixup"][0].tolist()
+        opens = np.flatnonzero(record["code"][0].cpu().numpy() != 0)  # every row is live
+        longest = int(np.diff(np.append(opens, n)).max())
+        ms = graph_time_ms(lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024),
+                           **({"calls": 5, "replays": 5} if slow else {}))
+        walk_ms = graph_time_ms(lambda: k3.lanms_merge_scan_cuda(rows, 0.2, 1024, _chunk=n),
+                                calls=5, replays=5)
         nbytes = rows.numel() * 4 + 1024 * 9 * 4 + 4
-        rows_out[n] = (ms, plain_ms, *bound_ms(nbytes, n * 860), err)
-        print(f"K3 lanms_merge_scan K={n} live candidates ({n // 16} words), max_out 1024: "
-              f"{int(mk[0])} merged quads; max|d| = {err:.3e}; "
-              "ms {:.4f} plain_ms (one call, CUDA events) {:.4f} bound_ms {:.6f} ({})".format(
-                  *rows_out[n][:4]))
+        rows_out[field] = (ms, plain_ms, *bound_ms(nbytes, n * 860), err)
+        print(f"K3 lanms_merge_scan, {field} ({n} live candidates"
+              + ("" if slow else f", {n // 16} words") + f"), max_out 1024: {int(mk[0])} merged "
+              f"quads, longest merged run {longest} rows; chunks of {chunk} rows, fix-up "
+              f"rounds {rounds}, re-walks {rewalks}, rows a re-walk mean "
+              f"{rewalked / max(rewalks, 1):.2f} max {most}; bit-equal to one thread's walk; "
+              f"max|d| = {err:.3e}; ms {ms:.5f} (one thread's walk {walk_ms:.4f}, "
+              f"{walk_ms / ms:.2f}x) plain_ms (one call, CUDA events"
+              + (f", its first {held.shape[1]} rows" if slow else "") + f") {plain_ms:.2f} "
+              "bound_ms {:.6f} ({})".format(*rows_out[field][2:4]))
+        rows_out[field] += (walk_ms,)
     return rows_out
 
 
@@ -1848,22 +1895,68 @@ def profiler_split(torch, k1, det, rec, rng) -> None:
         shutil.rmtree(logdir, ignore_errors=True)
 
 
-def bench_on_card(smi: str) -> None:
-    """Phase 12: ``python -m manuscript_tpu_torch bench`` at full size, then
-    ``--perf-gate``. Every line parses, is finite and names the card; the
-    primary comes first; both MFUs lie in (0, 1.05]; the quality lines
-    (phase 7's pages and settings) equal the JAX package's CPU numbers
-    within phase 7's tolerances. The primary and the ``PERF_GATE`` line
-    name the bench's pinned workload: 128 word slots and ``BENCH_WORDS``
-    words a page."""
+def pinned(row) -> bool:
+    """The bench's pinned workload: 128 word slots and ``BENCH_WORDS`` words a
+    page."""
+    from manuscript_tpu_torch.bench import BENCH_WORDS
+
+    return row["word_capacity"] == 128 and BENCH_WORDS[0] <= row["words_per_page"] <= BENCH_WORDS[1]
+
+
+def perf_gate_on_card(smi: str) -> dict:
+    """Phase 12: ``python -m manuscript_tpu_torch.bench --perf-gate``, alone on
+    the card: its line names the card, the CUDA backend and the pinned
+    workload, with an MFU in (0, 1.05]."""
+    gate = subprocess_lines(["-m", "manuscript_tpu_torch.bench", "--perf-gate"], timeout=600)
+    got = json.loads(next(ln for ln in gate.splitlines() if ln.startswith("PERF_GATE "))[10:])
+    check(got["backend"] == "cuda" and got["device"] == smi and 0 < got["program_mfu"] <= 1.05, got)
+    check(pinned(got), got)
+    return got
+
+
+def start_bench() -> tuple:
+    """Phase 12: ``python -m manuscript_tpu_torch bench`` at full size, started
+    as a subprocess that runs on beside the rest of phase 12 and phases 13
+    and 14 (its output into temporary files) → a handle for
+    ``bench_on_card``. Its times there are no measurements: the bench alone
+    gives those."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "manuscript_tpu_torch", "bench"], cwd=ROOT,
+                            stdout=out, stderr=err, text=True)
+    return proc, out, err, time.perf_counter()
+
+
+def stop_bench(started: tuple) -> None:
+    """``start_bench``'s process killed if it still runs."""
+    proc = started[0]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def bench_on_card(smi: str, started: tuple, gate: dict) -> None:
+    """Waits for ``start_bench``'s run. Every line parses, is finite and names
+    the card; the primary comes first; both MFUs lie in (0, 1.05]; the
+    quality lines (phase 7's pages and settings) equal the JAX package's CPU
+    numbers within phase 7's tolerances. The primary and the perf gate's
+    line (``gate``) name the bench's pinned workload."""
     from manuscript_tpu_torch.bench import BENCH_WORDS
     from manuscript_tpu_torch.utils.quality import quality_reference
 
-    def pinned(row) -> bool:
-        return row["word_capacity"] == 128 and BENCH_WORDS[0] <= row["words_per_page"] <= BENCH_WORDS[1]
-
+    proc, out_file, err_file, t0 = started
+    try:
+        code = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        stop_bench(started)
+        raise
+    out_file.seek(0)
+    err_file.seek(0)
+    out = out_file.read()
+    print(f"$ python -m manuscript_tpu_torch bench  ({time.perf_counter() - t0:.1f} s since its "
+          f"start in phase 12, beside phases 12 to 14: no measurement; exit {code})")
+    print(out.rstrip())
+    check(code == 0, err_file.read()[-4000:])
     ref = quality_reference()
-    out = subprocess_lines(["-m", "manuscript_tpu_torch", "bench"], timeout=1200)
     lines = {}
     for ln in out.splitlines():
         if ln.startswith("{"):
@@ -1882,16 +1975,12 @@ def bench_on_card(smi: str) -> None:
         check(abs(lines[metric]["value"] - ref[name]["e2e_cer"]) <= 0.005, (lines[metric], ref[name]))
     print(f"bench: {len(lines)} lines, primary first, all finite on {smi}; quality equal to "
           "configs/quality_reference.json within phase 7's tolerances")
-    gate = subprocess_lines(["-m", "manuscript_tpu_torch.bench", "--perf-gate"], timeout=600)
-    got = json.loads(next(ln for ln in gate.splitlines() if ln.startswith("PERF_GATE "))[10:])
-    check(got["backend"] == "cuda" and got["device"] == smi and 0 < got["program_mfu"] <= 1.05, got)
-    check(pinned(got), got)
     primary = lines["e2e_pipeline_pages_per_sec"]
     print(f"workload (BENCH_WORDS {BENCH_WORDS}): bench {primary['words_per_page']} words a page "
           f"at {primary['word_capacity']} slots, {primary['box_capacity']} boxes; perf gate "
-          f"{got['words_per_page']} at {got['word_capacity']} slots, {got['box_capacity']} boxes: "
-          f"device-only {got['device_only_pages_per_sec']} pages/s, MFU {got['program_mfu']}, "
-          f"{got['flops_per_page']:.4g} FLOPs a page")
+          f"{gate['words_per_page']} at {gate['word_capacity']} slots, {gate['box_capacity']} boxes: "
+          f"device-only {gate['device_only_pages_per_sec']} pages/s, MFU {gate['program_mfu']}, "
+          f"{gate['flops_per_page']:.4g} FLOPs a page")
 
 
 def serve_bench_on_card() -> None:
@@ -1978,21 +2067,29 @@ def kernel_cache(tmp: Path) -> None:
           f"all {len(second['libs'])} libraries from it")
 
 
-def measuring_tools(torch, k1, det, rec, rng) -> None:
-    """Phase 12: the profiler split, the bench and its perf gate, the serving
-    bench, the decode sweep through K1, and the kernel cache."""
+def measuring_tools(torch, k1, det, rec, rng) -> tuple:
+    """Phase 12: the profiler split, the perf gate and the serving bench, each
+    alone on the card; then the bench started (``start_bench``), and beside
+    it the decode sweep through K1 and the kernel cache → the bench's handle
+    and the perf gate's line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.perf_counter()
     profiler_split(torch, k1, det, rec, rng)
     print(f"(profiler part {time.perf_counter() - t0:.1f} s)")
-    torch.cuda.empty_cache()  # the bench's training steps run in a process of their own
-    bench_on_card(smi)
+    torch.cuda.empty_cache()  # the bench's and the gate's steps run in processes of their own
+    gate = perf_gate_on_card(smi)
     serve_bench_on_card()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
-        decode_sweep(torch, k1, Path(tmp))
-        kernel_cache(Path(tmp))
+    bench = start_bench()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+            decode_sweep(torch, k1, Path(tmp))
+            kernel_cache(Path(tmp))
+    except BaseException:
+        stop_bench(bench)
+        raise
+    return bench, gate
 
 
 def split_brightness(trba_batch, east_batch) -> tuple:
@@ -2831,22 +2928,31 @@ def main() -> int:
     ref_launches = reference_weights_tps_vis(torch, rng, k1, k2)
 
     # ---- 12. measuring tools ---------------------------------------------------------------
-    phase("12 measuring tools: profiler, bench, perf gate, serving bench, decode sweep, kernel cache")
+    phase("12 measuring tools: profiler, perf gate, serving bench, bench, decode sweep, kernel cache")
     print(smi)
-    measuring_tools(torch, k1, det, rec, rng)
+    bench, gate = measuring_tools(torch, k1, det, rec, rng)
+    try:
+        # ---- 13. the mesh -----------------------------------------------------------------
+        phase("13 mesh on the card")
+        print(smi)
+        torch.cuda.empty_cache()  # the bench runs beside this phase and the next
+        # torch's defaults (phase 11 turned matmul TF32 on), which the ranks that
+        # phase 13 spawns start with: their pages are held to this process's
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        mesh_result = mesh_on_card(torch, det, rec, pages5, capacity5, k1, k2)
 
-    # ---- 13. the mesh ---------------------------------------------------------------------
-    phase("13 mesh on the card")
-    print(smi)
-    # torch's defaults (phase 11 turned matmul TF32 on), which the ranks that
-    # phase 13 spawns start with: their pages are held to this process's
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-    mesh_result = mesh_on_card(torch, det, rec, pages5, capacity5, k1, k2)
+        # ---- 14. the port's examples and notebooks ---------------------------------------
+        phase("14 examples and notebooks")
+        print(smi)
+        torch.cuda.empty_cache()
+        example_launches = examples_and_notebooks(torch, k1, k2, k3, smi)
 
-    # ---- 14. the port's examples and notebooks -------------------------------------------
-    phase("14 examples and notebooks")
-    print(smi)
-    example_launches = examples_and_notebooks(torch, k1, k2, k3, smi)
+        # ---- the bench, started in phase 12 -------------------------------------------------
+        phase("12, the bench (started in phase 12, beside phases 12 to 14)")
+        print(smi)
+        bench_on_card(smi, bench, gate)
+    finally:
+        stop_bench(bench)
 
     # ---- result ---------------------------------------------------------------
     phase("result")
@@ -2858,7 +2964,7 @@ def main() -> int:
     r_row = min((r for r in k1_rows if r >= r_batch), default=max(k1_rows))
     k1_ms, k1_plain_ms, k1_bound, k1_by, _ = k1_rows[r_row]
     k2_ms, k2_plain_ms, k2_bound, k2_by, _ = k2_rows["pred4"]
-    k3_ms, k3_plain_ms, k3_bound, k3_by, _ = k3_rows_[8192]
+    k3_ms, k3_plain_ms, k3_bound, k3_by, _, k3_walk_ms = k3_rows_[8192]
     print(f"kernel rows: K1 and K2 launches of process_batch on 8 pages (phase 5; "
           f"Pipeline.predict on 3 pages in phase 3: {launches}; training's validations in "
           f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}; phase 13, two shards "
@@ -2886,9 +2992,9 @@ def main() -> int:
          "replaces": "manuscript_tpu/ops/lanms_jax.py:151 (the lax.scan merge of "
                      "locality_aware_nms_jax; XLA, not Pallas: a kernel of the port only)",
          "launches": classic_launches["lanms_merge_scan"],
-         "max_abs_err": max(r[-1] for r in k3_rows_.values()),
+         "max_abs_err": max(r[4] for r in k3_rows_.values()),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None,
+         "bound_by": k3_by, "library_ms": None, "one_thread_walk_ms": k3_walk_ms,
          "examples_launches": example_launches["lanms_merge_scan"]},
     ]
     print(json.dumps({"kernels": rows}))

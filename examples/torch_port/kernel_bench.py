@@ -9,7 +9,13 @@ against their XLA forms):
 * K2 ``quad_iou_gather`` (``csrc/quad_iou.cu``) over the predecessor pairs
   of 1024 and 8192 candidates, and ``quad_iou_matrix`` at 256² and 1024²;
 * K3 ``lanms_merge_scan`` (``csrc/quad_iou.cu``) at 2048 and 8192 live
-  candidates, max_out 1024;
+  candidates and on a page of 8192 that is one unbroken chain (jittered
+  copies of one word), max_out 1024; on the card also its settings on each
+  of these pages, one ``{"sweep": "lanms_merge_scan", ...}`` line each:
+  chunk lengths of 32 to 512 chunks a page (one thread a chunk) against
+  re-walk limits 1 to 64, each held bit-equal to one thread's walk, with
+  the kernel's record (fix-up rounds, re-walks, rows) and ``default`` true
+  for the wrapper's own setting;
 * a greedy TRBA decode of 64 crops at full width (hidden 256, 194 tokens,
   25 steps), its decoder stepping through K1 and through the plain twin.
 
@@ -63,6 +69,51 @@ def sorted_candidates(n: int, seed: int = 0) -> np.ndarray:
     rows = words[rng.integers(0, len(words), n)] + rng.normal(0, 2.0, (n, 8)).astype(np.float32)
     rows = np.concatenate([rows, rng.uniform(0.5, 1, (n, 1)).astype(np.float32)], 1)
     return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def one_chain_candidates(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 9) jittered copies of one word box, sorted by x0: a page whose
+    merge walk never breaks."""
+    rng = np.random.default_rng(seed)
+    word = synth_quads(1, seed).reshape(8)
+    rows = word + rng.normal(0, 2.0, (n, 8)).astype(np.float32)
+    rows = np.concatenate([rows, rng.uniform(0.5, 1, (n, 1)).astype(np.float32)], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def k3_sweep(k3, rows, field: str, device: str) -> None:
+    """K3's settings on one page of ``rows`` (1, n, 9) on the card: chunk
+    lengths that give 32 to 512 chunks (one thread each) against re-walk
+    limits, each bit-equal to one thread's walk (``_chunk=n``); one JSON
+    line each with its ms and the kernel's record."""
+    import torch
+
+    from manuscript_tpu_torch.utils.profiling import graph_time_ms
+
+    n = rows.shape[1]
+    walk = k3.lanms_merge_scan_cuda(rows, 0.2, 1024, _chunk=n)
+    threads = k3._k3_threads(n)
+    default = max(k3._K3_MIN_CHUNK, -(-n // threads))  # the wrapper's chunks on a live page
+    for chunk in (4, 8, 16, 32, 64, 128, 256):
+        if not 32 <= n // chunk <= k3._K3_THREADS:
+            continue
+        for rewalks in (1, 2, 4, 8, 64):
+            record = {}
+            got = k3.lanms_merge_scan_cuda(rows, 0.2, 1024, _chunk=chunk, _rewalks=rewalks,
+                                           _stats=record)
+            if not all(torch.equal(g, w) for g, w in zip(got, walk)):
+                raise RuntimeError(f"lanms_merge_scan: chunk {chunk}, rewalks {rewalks} "
+                                   "differs from one thread's walk")
+            rounds, rewalked, walked, most, _ = record["fixup"][0].tolist()
+            ms = graph_time_ms(lambda: k3.lanms_merge_scan_cuda(
+                rows, 0.2, 1024, _chunk=chunk, _rewalks=rewalks), calls=3, replays=3)
+            print(json.dumps({
+                "sweep": "lanms_merge_scan", "field": field, "candidates": n, "chunk": chunk,
+                "threads": k3._k3_threads(n, chunk), "rewalks": rewalks, "route": "cuda",
+                "ms": round(ms, 5),
+                "fixup_rounds": rounds, "rewalked": rewalked, "rows_rewalked": walked,
+                "most_rows": most, "default": chunk == default and rewalks == k3._K3_REWALKS,
+                "device": device}), flush=True)
 
 
 @contextmanager
@@ -150,20 +201,24 @@ def main(argv=None):
              twin_ms(lambda: k2.quad_iou_matrix_plain(a_q, b_q)), k2.matrix_cost(m, m))
 
     # ---- K3: the scan LANMS's merge walk ----
-    for n in ((128,) if smoke else (2048, 8192)):
-        rows = torch.from_numpy(sorted_candidates(n)).to(dev)[None].contiguous()
+    k3_fields = [("words", n, sorted_candidates) for n in ((128,) if smoke else (2048, 8192))]
+    k3_fields.append(("one chain", 128 if smoke else 8192, one_chain_candidates))
+    for field, n, make in k3_fields:
+        rows = torch.from_numpy(make(n)).to(dev)[None].contiguous()
         got = k3.lanms_merge_scan(rows, 0.2, 1024)
         want = k3.lanms_merge_scan_plain(rows, 0.2, 1024)
         m = min(int(want[2][0]), 1024)
         if not torch.equal(got[2], want[2]):
             raise RuntimeError(f"lanms_merge_scan: counts {got[2]} vs the twin's {want[2]}")
+        kernel = lambda: k3.lanms_merge_scan(rows, 0.2, 1024)  # noqa: E731
         plain = lambda: k3.lanms_merge_scan_plain(rows, 0.2, 1024)  # noqa: E731
-        emit("lanms_merge_scan", {"candidates": n, "max_out": 1024, "merged": int(want[2][0])},
+        emit("lanms_merge_scan",
+             {"field": field, "candidates": n, "max_out": 1024, "merged": int(want[2][0])},
              [got[0][0, :m], got[1][0, :m]], [want[0][0, :m], want[1][0, :m]],
-             (graph_time_ms(lambda: k3.lanms_merge_scan(rows, 0.2, 1024), calls=5, replays=5)
-              if cuda else call_ms(lambda: k3.lanms_merge_scan(rows, 0.2, 1024), dev, calls=1)),
-             call_ms(plain, dev, calls=1),
-             (n * 860, rows.numel() * 4 + 1024 * 9 * 4 + 4))
+             (graph_time_ms(kernel, calls=5, replays=5) if cuda else call_ms(kernel, dev, calls=1)),
+             call_ms(plain, dev, calls=1), (n * 860, rows.numel() * 4 + 1024 * 9 * 4 + 4))
+        if cuda:
+            k3_sweep(k3, rows, field, device)
 
     # ---- a greedy TRBA decode, its steps through K1 and through the twin ----
     from manuscript_tpu_torch.recognizers import TRBA

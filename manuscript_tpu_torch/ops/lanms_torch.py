@@ -9,9 +9,11 @@
    package's documented delta from the host's running-average merge), and
    each chain becomes one score-weighted average quad.
    ``locality_aware_nms`` (the scan LANMS, ``EAST(nms="device")``) merges
-   each into the RUNNING merged quad, as the host LANMS does, in one
-   sequential walk: the CUDA kernel K3 (``lanms_merge_scan`` in
-   ``csrc/quad_iou.cu``) on the card, a loop over the rows on the CPU.
+   each into the RUNNING merged quad, as the host LANMS does: on the card
+   the CUDA kernel K3 (``lanms_merge_scan`` in ``csrc/quad_iou.cu``), which
+   walks chunks of the rows at once and rejoins the true chain where it
+   breaks, with the outputs of one sequential walk; on the CPU a loop over
+   the rows.
 2. Exact greedy NMS over the merged quads as a fixpoint: a bounding-box upper
    bound on IoU picks the pairs that could suppress, up to 16·M of them are
    clipped exactly, pairs beyond that capacity keep the conservative bound,
@@ -212,6 +214,21 @@ def locality_aware_nms_parallel(
     return _standard_nms(out_p, out_s, merged_valid, iou_threshold)
 
 
+def _merge_step(state, q: torch.Tensor, s: torch.Tensor, iou_threshold: float):
+    """One live row (quad q (4, 2), score s) of the merge walk on from the
+    running quad ``state`` = (quad, score, weight), or None before the first
+    row → (the new state, whether the row opened it). A row that opens a new
+    quad closes ``state``."""
+    if state is not None:
+        cur_p, cur_s, cur_w = state
+        if bool(quad_iou_pairs_plain(q[None], cur_p[None])[0] > iou_threshold):
+            aligned = _normalize_quad(cur_p[None], q[None])[0]
+            tot = cur_w + s
+            den = torch.where(tot == 0, torch.ones_like(tot), tot)
+            return ((cur_p * cur_w + aligned * s) / den, torch.maximum(cur_s, s), tot), False
+    return (q, s, s), True
+
+
 def lanms_merge_scan_plain(rows: torch.Tensor, iou_threshold: float, max_out: int):
     """The merge walk of the scan LANMS, one row after another in torch ops
     (the plain twin of K3). ``rows`` (B, K, 9): each page's candidates
@@ -226,33 +243,50 @@ def lanms_merge_scan_plain(rows: torch.Tensor, iou_threshold: float, max_out: in
     count = torch.zeros(b, dtype=torch.int32, device=dev)
     for page in range(b):
         quads, scores = rows[page, :, :8].reshape(k, 4, 2), rows[page, :, 8]
-        cur_p = cur_s = cur_w = None
+        state = None
         m = 0
         # padding rows change nothing: only the live rows are walked
         for i in torch.nonzero(scores >= 0.0).flatten().tolist():
-            q, s = quads[i], scores[i]
-            if cur_p is not None:
-                if bool(quad_iou_pairs_plain(q[None], cur_p[None])[0] > iou_threshold):
-                    aligned = _normalize_quad(cur_p[None], q[None])[0]
-                    tot = cur_w + s
-                    den = torch.where(tot == 0, torch.ones_like(tot), tot)
-                    cur_p = (cur_p * cur_w + aligned * s) / den
-                    cur_s, cur_w = torch.maximum(cur_s, s), tot
-                    continue
+            new, opened = _merge_step(state, quads[i], scores[i], iou_threshold)
+            if opened and state is not None:
                 slot = min(m, max_out - 1)
-                out_p[page, slot], out_s[page, slot] = cur_p, cur_s
+                out_p[page, slot], out_s[page, slot] = state[0], state[1]
                 m += 1
-            cur_p, cur_s, cur_w = q, s, s
-        if cur_p is not None:
+            state = new
+        if state is not None:
             slot = min(m, max_out - 1)
-            out_p[page, slot], out_s[page, slot] = cur_p, cur_s
+            out_p[page, slot], out_s[page, slot] = state[0], state[1]
             m += 1
         count[page] = m
     return out_p, out_s, count
 
 
-def lanms_merge_scan_cuda(rows: torch.Tensor, iou_threshold: float, max_out: int):
-    """K3 on the card: one launch, one block per page."""
+# csrc/quad_iou.cu's K3_THREADS (a page's block at most) and K3_MIN_CHUNK
+# (a default chunk's rows at least), and the re-walk limit passed to it
+_K3_THREADS, _K3_MIN_CHUNK, _K3_REWALKS = 512, 8, 4
+
+
+def _k3_threads(k: int, chunk=None) -> int:
+    """The threads of K3's block for pages of ``k`` rows: one a chunk of
+    ``chunk`` rows (None: of ``_K3_MIN_CHUNK``), a multiple of 32 up to
+    ``_K3_THREADS``."""
+    chunks = -(-k // (chunk or _K3_MIN_CHUNK))
+    return max(32, min(_K3_THREADS, -(-chunks // 32) * 32))
+
+
+def lanms_merge_scan_cuda(rows: torch.Tensor, iou_threshold: float, max_out: int,
+                          _chunk=None, _rewalks=None, _stats=None):
+    """K3 on the card: one launch, one block per page, each thread walking a
+    chunk of the page's rows. ``_chunk`` (private) fixes the chunk length:
+    None takes the live extent over ``_k3_threads(K)`` threads, at least
+    ``_K3_MIN_CHUNK`` rows, and ``K`` walks the page with one thread;
+    ``_rewalks`` (private, ``_K3_REWALKS`` by default) caps how often a
+    chunk behind the first stale one walks again. Every setting gives the
+    same outputs. A dict ``_stats`` (private) gets the kernel's record:
+    ``fixup`` (B, 5) int32 (fix-up rounds, re-walks, rows re-walked, most
+    rows of one re-walk, the chunk length) and ``code`` (B, K) int32 (0
+    merged or padding, 1 opened the page's first quad, 2 closed a quad and
+    opened the next)."""
     global launches
     if rows.device.type != "cuda":
         raise ValueError(f"lanms_merge_scan: rows are on {rows.device}, not CUDA")
@@ -264,16 +298,34 @@ def lanms_merge_scan_cuda(rows: torch.Tensor, iou_threshold: float, max_out: int
         )
     if max_out < 1:
         raise ValueError(f"lanms_merge_scan: max_out must be >= 1, got {max_out}")
+    if _chunk is not None and _chunk < 1:
+        raise ValueError(f"lanms_merge_scan: _chunk must be >= 1, got {_chunk}")
+    rewalks = _K3_REWALKS if _rewalks is None else _rewalks
+    if rewalks < 0:
+        raise ValueError(f"lanms_merge_scan: _rewalks must be >= 0, got {_rewalks}")
     b, k = rows.shape[:2]
-    out_p = torch.empty(b, max_out, 4, 2, dtype=torch.float32, device=rows.device)
-    out_s = torch.empty(b, max_out, dtype=torch.float32, device=rows.device)
-    count = torch.empty(b, dtype=torch.int32, device=rows.device)
+    dev = rows.device
+    threads = _k3_threads(k, _chunk)
+    # chunks a page can have: at most one a thread by default
+    c_cap = max(-(-k // _chunk), threads) if _chunk else threads
+    out_p = torch.empty(b, max_out, 4, 2, dtype=torch.float32, device=dev)
+    out_s = torch.empty(b, max_out, dtype=torch.float32, device=dev)
+    count = torch.empty(b, dtype=torch.int32, device=dev)
+    # the record's codes past a page's last live row are never written: zeros
+    iscratch = (torch.empty if _stats is None else torch.zeros)(
+        b, k + 4 * c_cap, dtype=torch.int32, device=dev)
+    fscratch = torch.empty(b, 9 * k + 20 * c_cap, dtype=torch.float32, device=dev)
+    stats = torch.empty(b, 5, dtype=torch.int32, device=dev) if _stats is not None else None
     status = _lib().lanms_merge_scan_launch(
-        rows.data_ptr(), b, k, float(iou_threshold), max_out, out_p.data_ptr(),
-        out_s.data_ptr(), count.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream,
+        rows.data_ptr(), b, k, float(iou_threshold), max_out, _chunk or 0, rewalks, threads,
+        c_cap, out_p.data_ptr(), out_s.data_ptr(), count.data_ptr(), iscratch.data_ptr(),
+        fscratch.data_ptr(), 0 if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "lanms_merge_scan")
     launches += 1
+    if _stats is not None:
+        _stats.update(fixup=stats, code=iscratch[:, :k])
     return out_p, out_s, count
 
 

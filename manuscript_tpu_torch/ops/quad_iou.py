@@ -157,7 +157,8 @@ def _lib():
         lib.quad_iou_gather_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
         # K3, the scan LANMS's merge chain (wrapped in ops/lanms_torch.py)
         lib.lanms_merge_scan_launch.argtypes = [
-            ptr, i64, i64, ctypes.c_float, i64, ptr, ptr, ptr, ptr
+            ptr, i64, i64, ctypes.c_float, i64, i64, ctypes.c_int, ctypes.c_int, i64,
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ]
         for fn in ("quad_iou_pairs_launch", "quad_iou_matrix_launch",
                    "quad_iou_gather_launch", "lanms_merge_scan_launch"):

@@ -264,6 +264,104 @@ def test_lanms_merge_scan_refuses_what_it_does_not_take(cuda):
         k3.lanms_merge_scan(rows[:, :, :8].contiguous(), 0.2, 4)
     with pytest.raises(ValueError):
         k3.lanms_merge_scan(rows, 0.2, 0)
+    with pytest.raises(ValueError):
+        k3.lanms_merge_scan_cuda(rows, 0.2, 4, _chunk=0)
+    with pytest.raises(ValueError):
+        k3.lanms_merge_scan_cuda(rows, 0.2, 4, _rewalks=-1)
+
+
+def _x0_sorted(cands):
+    """(B, K, 9) candidates in the merge walk's order: by x0, stable,
+    padding last (as ``lanms_torch.locality_aware_nms`` sorts them)."""
+    key = torch.where(cands[..., 8] >= 0, cands[..., 0], torch.full_like(cands[..., 0], float("inf")))
+    order = torch.sort(key, dim=1, stable=True).indices
+    return cands[torch.arange(cands.shape[0], device=cands.device)[:, None], order].contiguous()
+
+
+def _k3_at_every_chunk(rows, thr, max_out):
+    """K3 at chunk lengths K (one thread walks the page), 256, 64, 16, 1
+    and the default, the default also with re-walk limits 0 and 1000: all
+    bit-equal; → the K run's outputs, and its plain twin's on the CPU held
+    to them (equal counts and scores, quads within 1e-3 px)."""
+    from manuscript_tpu_torch.ops import lanms_torch as k3
+
+    k = rows.shape[1]
+    want = k3.lanms_merge_scan_cuda(rows, thr, max_out, _chunk=k)
+    for chunk, rewalks in ((256, None), (64, None), (16, None), (1, None), (None, None),
+                           (None, 0), (None, 1000)):
+        got = k3.lanms_merge_scan_cuda(rows, thr, max_out, _chunk=chunk, _rewalks=rewalks)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (chunk, rewalks, g, w)
+    pp, sp, mp = k3.lanms_merge_scan_plain(rows.cpu(), thr, max_out)
+    assert torch.equal(want[2].cpu(), mp)
+    torch.testing.assert_close(want[0].cpu(), pp, atol=1e-3, rtol=0)
+    torch.testing.assert_close(want[1].cpu(), sp, atol=0, rtol=0)
+    return want
+
+
+@pytest.mark.parametrize("pages,n,pad,max_out", [(1, 2048, 0, 1024), (3, 500, 300, 64), (2, 400, 0, 4),
+                                                 (1, 300, 0, 1)])
+def test_lanms_merge_scan_chunks_are_bit_equal(cuda, pages, n, pad, max_out):
+    """The chunked walks give the one-thread walk's outputs bit for bit,
+    past max_out too (1 and 4 slots: the last slot holds the last quad)."""
+    rng = np.random.default_rng(n + 1)
+    cands = torch.from_numpy(np.stack([_candidate_field(rng, n, pad=pad) for _ in range(pages)]))
+    _, _, count = _k3_at_every_chunk(_x0_sorted(cands).to(cuda), 0.2, max_out)
+    assert max_out > 4 or bool((count > max_out).all())
+
+
+def test_lanms_merge_scan_one_chain_page(cuda):
+    """A page that never breaks (jittered copies of one quad): no chunk
+    rejoins, every round settles one more chunk, and the result is the one
+    merged quad of the sequential walk."""
+    from manuscript_tpu_torch.ops import lanms_torch as k3
+
+    rng = np.random.default_rng(5)
+    n = 2048
+    base = np.array([100, 50, 200, 50, 200, 80, 100, 80], np.float64)
+    rows = np.concatenate([base + rng.normal(0, 2.0, (n, 8)), rng.uniform(0.5, 1, (n, 1))], 1)
+    rows = _x0_sorted(torch.from_numpy(rows.astype(np.float32))[None]).to(cuda)
+    _, _, count = _k3_at_every_chunk(rows, 0.2, 16)
+    assert int(count[0]) == 1
+    for limit in (0, 1, k3._K3_REWALKS):
+        stats = {}
+        k3.lanms_merge_scan_cuda(rows, 0.2, 16, _chunk=64, _rewalks=limit, _stats=stats)
+        rounds, rewalks, walked, most, chunk = stats["fixup"][0].tolist()
+        assert rounds == n // 64 - 1 and most == chunk == 64 and walked == 64 * rewalks
+        # chunk c walks min(limit, c - 1) times from a predecessor that still
+        # changes, then once as the front
+        assert rewalks == sum(min(limit, c - 1) + 1 for c in range(1, n // 64))
+        assert int((stats["code"][0] != 0).sum()) == 1
+
+
+def test_lanms_merge_scan_pages_of_other_live_counts(cuda):
+    """Pages with 2000, 700, 1 and 0 live rows of 2048 in one launch."""
+    rng = np.random.default_rng(6)
+    k = 2048
+    pages = [np.concatenate([_candidate_field(rng, live, words=max(1, live // 16)),
+                             np.full((k - live, 9), -1.0, np.float32)])
+             for live in (2000, 700, 1, 0)]
+    cands = torch.from_numpy(np.stack(pages))
+    _, _, count = _k3_at_every_chunk(_x0_sorted(cands).to(cuda), 0.2, 512)
+    assert int(count[2]) == 1 and int(count[3]) == 0
+
+
+def test_lanms_merge_scan_on_the_micro_detector_candidates(cuda):
+    """The candidate rows that the committed micro EAST gives on held-out
+    pages (3 pages of 2048 slots, ~900–1000 live each), in one launch."""
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+    from manuscript_tpu_torch.utils.quality import load_quality_models
+    from manuscript_tpu_torch.utils.synthetic import eval_pages
+
+    torch.backends.cudnn.allow_tf32 = False
+    east, _ = load_quality_models("cuda")
+    x = torch.stack([torch.from_numpy(np.ascontiguousarray(detector_preprocess_host(p, east.target_size)))
+                     for p, _ in eval_pages(3, seed=9000)]).to(cuda)
+    with torch.inference_mode():
+        cands = east.candidates(*east.maps(x))
+    assert bool(((cands[..., 8] >= 0).sum(1) > 100).all())
+    _, _, count = _k3_at_every_chunk(_x0_sorted(cands), east.iou_threshold, east.max_boxes)
+    assert bool((count > 10).all())
 
 
 def test_host_lanms_library_builds_and_loads(cuda):

@@ -71,7 +71,9 @@ def test_kernel_bench_rows_match_their_twins(monkeypatch, capsys):
     lines = smoke_lines("kernel_bench", monkeypatch, capsys)
     assert [ln["kernel"] for ln in lines] == [
         "attention_step", "attention_step", "quad_iou_gather", "quad_iou_matrix",
-        "lanms_merge_scan", "trba_greedy_decode"]
+        "lanms_merge_scan", "lanms_merge_scan", "trba_greedy_decode"]
+    assert [ln.get("field") for ln in lines if ln["kernel"] == "lanms_merge_scan"] == [
+        "words", "one chain"]
     for ln in lines:
         assert ln["route"] == "plain" and ln["max_abs_err"] == 0.0
         assert ln["ms"] > 0 and ln["plain_ms"] > 0 and ln["bound_ms"] > 0
