@@ -1796,9 +1796,8 @@ def print_split(what: str, split: dict, regions, per: int, outer: bool = False) 
     occurrence, the device work outside the regions (outside the first,
     when ``outer``: it holds the others), the window's busy share, and the
     top 10 kernels.
-    Autograd runs the backward pass on a thread of its own, so a region on
-    the calling thread holds the backward's launch, not its kernels: they
-    are in the rest."""
+    Autograd runs the backward pass on a thread of its own; a region around
+    it counts its kernels all the same (``device_split``'s launch rule)."""
     print(f"{what}: trace window {split['window_ms']:.3f} ms, device {split['device_ms']:.3f} ms "
           f"(busy share {split['busy']:.4f}), {split['launches']} device launches; per time:")
     for name in regions:

@@ -16,8 +16,9 @@ share that word's encoder memory (not repeated k times, as the JAX package
 does; the values are the same) with the GNMT length
 penalty ((5+t)^α/6^α), finished beams that only continue with EOS at log-prob
 0, temperature-scaled logits, BLANK masked at −1e4, and the chosen beams'
-logits traced back through the backpointers. Parameters keep the flax names
-and layouts; the decoder computes in float32.
+logits traced back through the backpointers; each of beam's steps is a
+profiler region ``beam.step`` (``utils/profiling.annotate``). Parameters
+keep the flax names and layouts; the decoder computes in float32.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.attention_step import attention_step
+from ..utils.profiling import annotate
 from .layers import dropout, float32_or_wider, rand_rows
 from .rnn import lstm_cell_step
 
@@ -178,32 +180,33 @@ class AttentionDecoder(nn.Module):
         finished = torch.zeros(b, k, dtype=torch.bool, device=dev)
         trace = []
         for t in range(max_len):
-            h2, c2 = self._step(
-                h.reshape(b * k, hdim), c.reshape(b * k, hdim), enc, proj_enc,
-                tok.reshape(b * k), beam=k,
-            )
-            logits = self._logits(h2) / max(temperature, 1e-6)
-            log_probs = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
-            # finished beams: only EOS continues, at log-prob 0
-            log_probs = torch.where(
-                finished[:, :, None], torch.full_like(log_probs, NEG_INF), log_probs
-            )
-            log_probs[..., self.eos_id] = torch.where(
-                finished, torch.zeros_like(scores), log_probs[..., self.eos_id]
-            )
-            next_scores = scores[:, :, None] + log_probs
-            lp = 1.0
-            if alpha > 0:  # f32 like the reference: (5 + (t+1))^α / 6^α
-                lp = float(torch.tensor(6.0 + t, dtype=torch.float32) ** alpha / (6.0**alpha))
-                next_scores = next_scores / lp
-            top_scores, top_idx = topk_lowest_index(next_scores.reshape(b, k * v), k)
-            parent = top_idx // v
-            tok = top_idx % v
-            h = h2.reshape(b, k, hdim)[bidx, parent]
-            c = c2.reshape(b, k, hdim)[bidx, parent]
-            finished = finished[bidx, parent] | (tok == self.eos_id)
-            scores = top_scores * lp if alpha > 0 else top_scores
-            trace.append((tok, parent, logits.reshape(b, k, v)))
+            with annotate("beam.step"):
+                h2, c2 = self._step(
+                    h.reshape(b * k, hdim), c.reshape(b * k, hdim), enc, proj_enc,
+                    tok.reshape(b * k), beam=k,
+                )
+                logits = self._logits(h2) / max(temperature, 1e-6)
+                log_probs = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
+                # finished beams: only EOS continues, at log-prob 0
+                log_probs = torch.where(
+                    finished[:, :, None], torch.full_like(log_probs, NEG_INF), log_probs
+                )
+                log_probs[..., self.eos_id] = torch.where(
+                    finished, torch.zeros_like(scores), log_probs[..., self.eos_id]
+                )
+                next_scores = scores[:, :, None] + log_probs
+                lp = 1.0
+                if alpha > 0:  # f32 like the reference: (5 + (t+1))^α / 6^α
+                    lp = float(torch.tensor(6.0 + t, dtype=torch.float32) ** alpha / (6.0**alpha))
+                    next_scores = next_scores / lp
+                top_scores, top_idx = topk_lowest_index(next_scores.reshape(b, k * v), k)
+                parent = top_idx // v
+                tok = top_idx % v
+                h = h2.reshape(b, k, hdim)[bidx, parent]
+                c = c2.reshape(b, k, hdim)[bidx, parent]
+                finished = finished[bidx, parent] | (tok == self.eos_id)
+                scores = top_scores * lp if alpha > 0 else top_scores
+                trace.append((tok, parent, logits.reshape(b, k, v)))
 
         beam = torch.argmax(scores, dim=-1)
         b1 = bidx[:, 0]

@@ -31,6 +31,7 @@ import torch
 from ..models.trba import TRBAModel
 from ..ops.image import read_image, resize_and_pad, to_rgb_u8
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate
 from ..utils.weights import (
     MissingWeightsError,
     allow_random_init_default,
@@ -207,16 +208,19 @@ class TRBA:
         """(N, img_h, img_w, 3) uint8 crops on the model's device → (token ids
         (N, steps), confidences (N,)) on that device, enqueued on the current
         stream and not waited for. ``model``: a copy of the wrapper's model
-        on the crops' device (a mesh's replica), else the wrapper's own."""
+        on the crops' device (a mesh's replica), else the wrapper's own.
+        Profiler region ``trba.recognize``, around ``trba.encode`` and
+        ``trba.decode``."""
         if mode not in ("greedy", "beam"):
             raise ValueError(f"Unknown mode: {mode}")
         model = self.model if model is None else model
-        x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
-        if mode == "greedy":
-            logits, preds = model.greedy(x, self.max_length)
-        else:
-            logits, preds = model.beam(x, self.max_length, beam_size, alpha, temperature)
-        return sequence_confidence(logits, preds, self.eos_id)
+        with annotate("trba.recognize"):
+            x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
+            if mode == "greedy":
+                logits, preds = model.greedy(x, self.max_length)
+            else:
+                logits, preds = model.beam(x, self.max_length, beam_size, alpha, temperature)
+            return sequence_confidence(logits, preds, self.eos_id)
 
     def recognize_u8(
         self,

@@ -268,16 +268,17 @@ def east_train_loss(model: EASTModel, image_u8, gt_score, gt_geo, use_ohem: bool
                     group=None) -> torch.Tensor:
     """The training loss of one batch (with a process ``group``, of the
     global batch whose slice this is), in the model's current mode and its
-    parameters' dtype."""
-    out = model(normalize(image_u8, next(model.parameters()).dtype))
-    pred_score, pred_geo = out["score"][..., 0], out["geometry"]
-    gh, gw = gt_score.shape[1], gt_score.shape[2]
-    if pred_score.shape[1:3] != (gh, gw):  # multiscale: back to the label maps' size
-        pred_score = resize_bilinear(pred_score[:, None], gh, gw)[:, 0]
-        pred_geo = resize_bilinear(pred_geo.permute(0, 3, 1, 2), gh, gw).permute(0, 2, 3, 1)
-    return east_loss(gt_score, pred_score, gt_geo, pred_geo, use_ohem=use_ohem,
-                     ohem_ratio=ohem_ratio, use_focal_geo=use_focal_geo, focal_gamma=focal_gamma,
-                     group=group)
+    parameters' dtype. Profiler region ``east.forward``."""
+    with annotate("east.forward"):
+        out = model(normalize(image_u8, next(model.parameters()).dtype))
+        pred_score, pred_geo = out["score"][..., 0], out["geometry"]
+        gh, gw = gt_score.shape[1], gt_score.shape[2]
+        if pred_score.shape[1:3] != (gh, gw):  # multiscale: back to the label maps' size
+            pred_score = resize_bilinear(pred_score[:, None], gh, gw)[:, 0]
+            pred_geo = resize_bilinear(pred_geo.permute(0, 3, 1, 2), gh, gw).permute(0, 2, 3, 1)
+        return east_loss(gt_score, pred_score, gt_geo, pred_geo, use_ohem=use_ohem,
+                         ohem_ratio=ohem_ratio, use_focal_geo=use_focal_geo,
+                         focal_gamma=focal_gamma, group=group)
 
 
 def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], image, score, geo,
@@ -288,29 +289,32 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
     point under SAM), on the device. With a process ``group`` the batch is
     this rank's slice and the loss and gradients are the global batch's (the
     model's BatchNorms synchronised by ``models.layers.sync_batch_stats``).
-    Profiler regions: SAM's ``sam.first_pass`` and ``sam.second_pass``
-    (``east.gradient`` without SAM), then ``east.update``."""
+    Profiler regions: ``east.step`` around SAM's ``sam.first_pass`` and
+    ``sam.second_pass`` (``east.gradient`` without SAM), then
+    ``east.update``; each pass holds an ``east.forward`` (the loss) and an
+    ``optim.backward``."""
     model = state.model
     model.train()
     loss_fn = lambda: east_train_loss(model, image, score, geo, use_ohem, ohem_ratio,
                                       use_focal_geo, focal_gamma, group)
-    if use_sam:
-        named = dict(model.named_parameters())
-        loss, g_all = sam_gradient(loss_fn, named.values(), rho=0.05, adaptive=sam_adaptive,
-                                   model=model, group=group)
-        g_all = dict(zip(named, g_all))
-        grads = {k: g_all[k] for k in trainable}
-    else:
-        with annotate("east.gradient"):
-            loss = loss_fn()
-            grads = dict(zip(trainable, gradients(loss, list(trainable.values()), group)))
-    with annotate("east.update"):
-        grads = guard_finite(loss, grads)
-        updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
-        apply_updates(trainable, updates)
-        if state.ema is not None:
-            ema_update(state.ema, dict(model.named_parameters()), ema_decay)
-    return loss.detach()
+    with annotate("east.step"):
+        if use_sam:
+            named = dict(model.named_parameters())
+            loss, g_all = sam_gradient(loss_fn, named.values(), rho=0.05, adaptive=sam_adaptive,
+                                       model=model, group=group)
+            g_all = dict(zip(named, g_all))
+            grads = {k: g_all[k] for k in trainable}
+        else:
+            with annotate("east.gradient"):
+                loss = loss_fn()
+                grads = dict(zip(trainable, gradients(loss, list(trainable.values()), group)))
+        with annotate("east.update"):
+            grads = guard_finite(loss, grads)
+            updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
+            apply_updates(trainable, updates)
+            if state.ema is not None:
+                ema_update(state.ema, dict(model.named_parameters()), ema_decay)
+        return loss.detach()
 
 
 def eval_step(model: EASTModel, image, score, geo, group=None):

@@ -248,10 +248,12 @@ def gradients(loss: torch.Tensor, params: Sequence[torch.Tensor], group=None) ->
     """d loss / d params, zeros for parameters the loss does not reach. With
     a process ``group`` (data-parallel training; ``loss`` the global batch's,
     through ``parallel.sum_over_ranks``) the ranks' gradients are averaged,
-    which gives the global batch's gradient on every rank."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return average_gradients([torch.zeros_like(p) if g is None else g
-                              for p, g in zip(params, grads)], group)
+    which gives the global batch's gradient on every rank. Profiler region
+    ``optim.backward``."""
+    with annotate("optim.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return average_gradients([torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(params, grads)], group)
 
 
 def sam_gradient(
@@ -269,14 +271,16 @@ def sam_gradient(
     with g the gradient at ``params``. The first pass (at ``params``) moves
     the BatchNorms' running statistics of ``model``; the perturbed pass runs
     under ``frozen_batch_stats`` and leaves them alone. Profiler regions:
-    ``sam.first_pass`` (the gradient at ``params`` and the perturbation) and
-    ``sam.second_pass`` (the gradient at the perturbed point, the restore).
+    ``sam.first_pass`` (the gradient at ``params`` and, inside it,
+    ``sam.perturb``) and ``sam.second_pass`` (the gradient at the perturbed
+    point and, inside it, ``sam.restore``); each gradient is an
+    ``optim.backward`` (``gradients``).
     With a process ``group`` both gradients are the global batch's
     (``gradients``), so every rank takes the same ε."""
     params = list(params)
     with annotate("sam.first_pass"):
         g1 = gradients(loss_fn(), params, group)
-        with torch.no_grad():
+        with annotate("sam.perturb"), torch.no_grad():
             scaled = [torch.abs(p) * g for p, g in zip(params, g1)] if adaptive else g1
             scale = rho / (global_norm(scaled) + 1e-12)
             e_w = ([torch.square(p) * g * scale for p, g in zip(params, g1)] if adaptive
@@ -290,7 +294,7 @@ def sam_gradient(
                 loss2 = loss_fn()
                 g2 = gradients(loss2, params, group)
         finally:
-            with torch.no_grad():
+            with annotate("sam.restore"), torch.no_grad():
                 for p, s in zip(params, saved):
                     p.copy_(s)
     return loss2, g2

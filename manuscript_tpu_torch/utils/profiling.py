@@ -7,8 +7,10 @@ hide device time. ``trace()`` wraps ``torch.profiler`` (CPU and CUDA
 activities, CPU only without a card) and writes a Chrome trace, viewable in
 TensorBoard's profiler plugin or Perfetto, where the JAX module wraps
 ``jax.profiler``; ``annotate()`` names a region in that trace and, on a
-card, in NVTX. Two helpers have no JAX counterpart: ``device_split`` reads
-a finished trace's device time by kernel and by region, and ``count_flops``
+card, in NVTX (with no profiler recording it costs a flag read). Two
+helpers have no JAX counterpart: ``device_split`` reads a finished trace's
+device time by kernel and by region (autograd's worker thread counted in
+the regions around a backward pass), and ``count_flops``
 counts the FLOPs of the work run inside it, the hand-written kernels'
 included. ``graph_time_ms`` and ``call_ms`` time one call and ``bound_ms``
 gives the least time the card could take for a call's bytes and
@@ -18,6 +20,7 @@ time the kernels with them.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import statistics
 import time
@@ -25,6 +28,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
@@ -151,16 +155,36 @@ def trace(logdir: Union[str, Path]):
             torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in the profiler's trace (``record_function``) and, on a
-    card, an NVTX range of the same name."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+class annotate:
+    """``with annotate(name):`` names a region: a ``record_function`` event
+    in the profiler's trace while a profiler records (``trace()``,
+    ``torch.profiler.profile``), and, once the process has initialised
+    CUDA, an NVTX range of the same name for ``nsys``. With no profiler
+    active it enters no ``record_function`` and costs a flag read and the
+    NVTX push and pop, so regions may sit in hot loops (the CUDA check is
+    ``is_initialized``: ``is_available`` costs more than the rest)."""
+
+    __slots__ = ("name", "_event", "_nvtx")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "annotate":
+        self._event = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._event = torch.profiler.record_function(self.name)
+            self._event.__enter__()
+        self._nvtx = torch.cuda.is_initialized()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self._event is not None:
+            self._event.__exit__(*exc)
+        return False
 
 
 def _union_us(intervals) -> float:
@@ -176,9 +200,30 @@ def _union_us(intervals) -> float:
     return total + (0.0 if end is None else end - start)
 
 
-def _launches_under(event) -> int:
-    """Device operations launched by ``event`` and the CPU events under it."""
-    return len(event.kernels) + sum(_launches_under(ch) for ch in event.cpu_children)
+AUTOGRAD_OP = "autograd::engine::evaluate_function"
+
+
+def autograd_threads(events) -> set:
+    """The threads on which autograd's engine ran a backward node: those of
+    the events (anything with ``name`` and ``thread``) named
+    ``autograd::engine::evaluate_function: …``. On a card the engine runs
+    the CUDA backward on a worker thread of its own."""
+    return {e.thread for e in events if e.name.startswith(AUTOGRAD_OP)}
+
+
+def launched_in(span, launches, workers) -> list:
+    """The launch rule: of ``launches``, [(thread, time, work)] sorted by
+    time, the work launched inside ``span``, (thread, start, end), on the
+    span's own thread or on one of ``workers`` (``autograd_threads``), so
+    that a region around ``autograd.grad`` holds the backward's kernels."""
+    thread, start, end = span
+    out = []
+    for t, ts, work in launches[bisect.bisect_left(launches, start, key=lambda x: x[1]):]:
+        if ts > end:
+            break
+        if t == thread or t in workers:
+            out.append(work)
+    return out
 
 
 def device_split(prof) -> Dict[str, object]:
@@ -187,8 +232,13 @@ def device_split(prof) -> Dict[str, object]:
     * ``kernels``: {name: (count, device ms)} of every kernel, copy and
       memset, largest first;
     * ``regions``: {annotate name: {"count", "launches", "device_ms"}}: the
-      region's occurrences and the device work launched inside them (by the
-      profiler's launch-to-kernel correlation, summed over occurrences);
+      region's occurrences and the device work launched inside them,
+      summed over occurrences. A device operation belongs to a region when
+      the operator that launched it (joined by the profiler's
+      launch-to-kernel correlation) started inside the region's span, on
+      the region's thread or on a thread of autograd's engine
+      (``launched_in``): a region around a backward pass counts its
+      kernels;
     * ``launches``: the count of device operations;
     * ``device_ms``: their device time; ``window_ms``: the trace's span
       from its first to its last event; ``busy``: the share of that
@@ -211,13 +261,20 @@ def device_split(prof) -> Dict[str, object]:
         row = kernels.setdefault(e.name, [0, 0.0])
         row[0] += 1
         row[1] += (e.time_range.end - e.time_range.start) / 1e3
+    annotations = [e for e in events if e.device_type == cpu and e.is_user_annotation]
+    names = {e.name for e in annotations}  # nor is a region's span linked to its own event
+    launches = sorted(((e.thread, e.time_range.start, [k for k in e.kernels if k.name not in names])
+                       for e in events if e.device_type == cpu and e.kernels),
+                      key=lambda x: x[1])
+    workers = autograd_threads(events)
     regions: Dict[str, Dict[str, float]] = {}
-    for e in events:
-        if e.device_type == cpu and e.is_user_annotation:
-            row = regions.setdefault(e.name, {"count": 0, "launches": 0, "device_ms": 0.0})
-            row["count"] += 1
-            row["launches"] += _launches_under(e)
-            row["device_ms"] += e.device_time_total / 1e3
+    for e in annotations:
+        ops = [k for work in launched_in((e.thread, e.time_range.start, e.time_range.end),
+                                         launches, workers) for k in work]
+        row = regions.setdefault(e.name, {"count": 0, "launches": 0, "device_ms": 0.0})
+        row["count"] += 1
+        row["launches"] += len(ops)
+        row["device_ms"] += sum(k.duration for k in ops) / 1e3
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     window = max(b for _, b in spans) - min(a for a, _ in spans)
     busy = _union_us([(e.time_range.start, e.time_range.end) for e in device])
@@ -233,8 +290,10 @@ def device_split(prof) -> Dict[str, object]:
 
 def region_host_ms(prof) -> Dict[str, tuple]:
     """{annotate name: (occurrences, host-clock ms summed over them)} of a
-    finished ``trace()``: the regions' spans on the calling thread, which a
-    CPU-only trace has where ``device_split`` has no device time."""
+    finished ``trace()``: each region's span on the thread that opened it,
+    from its start to its end, whatever ran inside (autograd's worker
+    thread included); a CPU-only trace has these where ``device_split`` has
+    no device time."""
     out: Dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.is_user_annotation:

@@ -374,6 +374,37 @@ def test_host_lanms_library_builds_and_loads(cuda):
                                   lanms.locality_aware_nms_numpy(rows, 0.2))
 
 
+def test_device_split_counts_the_backward_in_the_asam_passes(cuda, tmp_path):
+    """On the card autograd launches a backward pass from a worker thread
+    of its own; ``device_split`` counts its kernels in the regions around
+    it all the same: ``optim.backward`` holds them, the two SAM passes hold
+    their forwards, backwards, perturbation and restore, and the step holds
+    nearly every launch of the trace."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.train import east_train, optim
+    from manuscript_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    model = EASTModel("resnet50-micro").to(cuda)
+    mask = east_train.freeze_mask(model, True)
+    trainable = {k: p for k, p in model.named_parameters() if mask[k]}
+    tx, _ = optim.build_east_optimizer(1e-3, 2, use_sam=True)
+    state = east_train.EASTTrainState(model, tx.init(trainable), None)
+    image = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, device=cuda)
+    score = (torch.rand(2, 16, 16, device=cuda) > 0.7).float()
+    geo = torch.randn(2, 16, 16, 8, device=cuda) * 4
+    east_train.train_step(state, tx, trainable, image, score, geo)  # warm
+    with profiling.trace(tmp_path) as prof:
+        east_train.train_step(state, tx, trainable, image, score, geo)
+    split = profiling.device_split(prof)
+    r = {k: v["launches"] for k, v in split["regions"].items()}
+    assert split["regions"]["optim.backward"]["count"] == 2
+    assert r["optim.backward"] >= r["east.forward"] / 2 > 0, r
+    assert (r["sam.first_pass"] + r["sam.second_pass"]
+            >= r["east.forward"] + r["optim.backward"] + r["sam.perturb"] + r["sam.restore"]), r
+    assert r["east.step"] >= 0.95 * split["launches"], (r, split["launches"])
+
+
 # 90 % of the PERF_GATE line of the bench's first run on the card, 36.695
 # pages/s and an MFU of 0.148851 (a later run read 38.066 / 0.154413), at 128
 # word slots and ~4.0e12 FLOPs a page (NVIDIA H100 80GB HBM3, 700.00 W;
