@@ -21,7 +21,14 @@ run with a traceback and a non-zero exit:
    thread's walk (both timed), and against its plain loop (timed once with
    CUDA events; the chain's first 2048 rows): equal counts, quads within
    1e-3 px; the longest merged
-   run and the fix-up rounds and rows from the kernel's record;
+   run and the fix-up rounds and rows from the kernel's record; the EAST
+   step's multi-tensor kernels (csrc/multi_tensor.cu) at
+   ``EASTModel("resnet101")``'s 348 leaves with one backward's gradients
+   (the KxK convolutions' channels_last): ASAM's and SAM's perturbation,
+   the restore, and the guarded clip → SGD → apply over the 315 trainable
+   leaves (under the clip, over it, NaN loss) bit-equal to their twins
+   given the kernel's own norm, the norms within 2e-6 of float64's, each
+   timed beside its plain form;
 3. full width with random weights from a seed: EAST resnet50 at 1280² (q=2,
    8192 candidates, 1024 boxes, bf16) and TRBA full (64×256, hidden 256,
    194 tokens, beam 8, max_len 25); first the recognizer's first and second
@@ -90,7 +97,9 @@ run with a traceback and a non-zero exit:
    OHEM, focal, multiscale, freeze_first) on 6 synthetic pages with COCO
    labels, GPU-resident and streamed, and RAdam + Lookahead + EMA over 6
    steps (one Lookahead sync), with step seconds, peak memory, validation
-   loss and soft dice, and ``best.msgpack`` read by ``EAST``;
+   loss and soft dice, the multi-tensor kernels' launches around each run
+   (5 an ASAM step, none under RAdam), and ``best.msgpack`` read by
+   ``EAST``;
 11. reference weights, TPS, vis: seeded state dicts of the reference's
    layout (EAST-R50 with every key ``convert_east`` reads; TRBA full plan,
    hidden 256, 194 classes, every key of ``convert_trba``, and a
@@ -179,8 +188,9 @@ subprocesses (phase 11 lifts it while it fetches from ``file://``): a
 constructor that finds no checkpoint would otherwise try the network.
 
 It prints the card's name and power limit, one JSON line with a row per
-kernel (K1 and K2 launches from phase 5, K3 launches from phase 8, and
-each kernel's launches in phase 14 under ``examples_launches``), and last
+kernel (K1 and K2 launches from phase 5, K3 launches from phase 8, the
+multi-tensor kernels' launches from phase 10, and each kernel's launches
+in phase 14 under ``examples_launches``), and last
 the line ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -709,6 +719,118 @@ def k3_rows(torch, k3, rng, dev) -> dict:
               "bound_ms {:.6f} ({})".format(*rows_out[field][2:4]))
         rows_out[field] += (walk_ms,)
     return rows_out
+
+
+def multi_tensor_rows(torch, dev) -> dict:
+    """Phase 2, the EAST step's multi-tensor kernels (``ops.multi_tensor``)
+    at the main path's leaf set: ``EASTModel("resnet101")``'s 348 leaves
+    with the gradients of one backward as autograd returns them (the KxK
+    convolutions' channels_last); the update over the 315 leaves that
+    ``freeze_first`` trains. ASAM's and SAM's perturbation and the restore
+    against ``perturb_plain`` and ``restore_plain`` given the kernel's own
+    norm, and the guarded clip → SGD → apply under the clip, over it and
+    with a NaN loss against ``tests/multi_tensor_twin.py`` given the
+    kernel's norm: bit for bit, each norm within 2e-6 of float64's. Each
+    piece timed (``graph_time_ms``) beside its plain form (the loops; the
+    optimizer's transforms for the update) and its bound (``cost``) →
+    {"pieces": {name: (ms, plain ms, bound ms, bound by)}, "max_abs_err",
+    "leaves", "elements"}."""
+    import importlib.util
+
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+    from manuscript_tpu_torch.train import east_train, optim
+    from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    spec = importlib.util.spec_from_file_location("multi_tensor_twin",
+                                                  ROOT / "tests" / "multi_tensor_twin.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+
+    model = init_random_(EASTModel("resnet101"), 0).to(dev).train()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    image = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8, device=dev, generator=gen)
+    score = (torch.rand(1, 64, 64, device=dev, generator=gen) > 0.8).float()
+    geo = torch.randn(1, 64, 64, 8, device=dev, generator=gen) * 4
+    named = dict(model.named_parameters())
+    loss = east_train.east_train_loss(model, image, score, geo, True, 0.5, True, 2.0)
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    params = [p.detach() for p in named.values()]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    mask = east_train.freeze_mask(model, True)
+    train = [i for i, k in enumerate(named) if mask[k]]
+    elements, trained = sum(p.numel() for p in params), sum(params[i].numel() for i in train)
+    strided = sum(not g.is_contiguous() for g in grads)
+    check(len(params) == 348 and elements == 47_185_801 and len(train) == 315, (len(params), elements))
+    check(strided > 0, "no channels_last gradient from autograd")
+
+    clone = lambda ts: [t.clone() for t in ts]  # noqa: E731
+    norm64 = lambda ts: float(torch.sqrt(sum((t.double() ** 2).sum() for t in ts)))  # noqa: E731
+
+    def diff(a, b) -> float:  # bit for bit or the largest |d|
+        same = all(torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+                   for x, y in zip(a, b, strict=True))
+        return 0.0 if same else max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    norm = torch.empty(1, device=dev)
+    errs, norm_err = [], 0.0
+    for adaptive in (True, False):
+        p_k, p_t = clone(params), clone(params)
+        saved = mt.perturb_cuda(p_k, grads, 0.05, adaptive, norm_out=norm)
+        mt.perturb_plain(p_t, grads, 0.05, adaptive, norm=norm[0])
+        want = norm64([p.abs() * g for p, g in zip(params, grads)] if adaptive else grads)
+        norm_err = max(norm_err, abs(float(norm) - want) / want)
+        errs.append(diff(p_k, p_t))
+        mt.restore_cuda(p_k, saved)
+        errs.append(diff(p_k, params))
+    tp, tg = [params[i] for i in train], [grads[i] for i in train]
+    traces = [torch.randn(p.shape, device=dev, generator=gen) * 1e-3 for p in tp]
+    for loss_value, total in ((1.5, 1.0), (1.5, 100.0), (float("nan"), 100.0)):
+        gs = [g * (total / norm64(tg)) for g in tg]
+        lv = torch.tensor(loss_value, device=dev)
+        p_k, p_t, t_k, t_t = clone(tp), clone(tp), clone(traces), clone(traces)
+        mt.clip_sgd_apply_cuda(lv, gs, t_k, p_k, 5.0, -1e-3, 0.9, norm_out=norm)
+        twin.clip_sgd_apply_twin(lv, gs, t_t, p_t, 5.0, -1e-3, 0.9, norm=norm[0])
+        want = norm64(gs) if np.isfinite(loss_value) else 0.0
+        norm_err = max(norm_err, abs(float(norm) - want) / max(want, 1e-30))
+        errs.append(diff(p_k + t_k, p_t + t_t))
+        check(all(bool(torch.isfinite(t).all()) for t in p_k + t_k), "a non-finite result")
+    err = max(errs)
+    print(f"multi_tensor at EAST-R101's leaf set ({len(params)} leaves, {elements} elements, "
+          f"{strided} channels_last gradients; update over {len(train)} trainable leaves, "
+          f"{trained} elements): perturb (ASAM, SAM), restore and update (under the clip, over "
+          f"it, NaN loss) against their twins given the kernel's norm: max|d| {err:.3e}; norms "
+          f"against float64's: largest relative gap {norm_err:.3e}")
+    check(err == 0.0, errs)
+    check(norm_err <= 2e-6, norm_err)
+
+    tx, _ = optim.build_east_optimizer(1e-3, 1, use_sam=True, grad_clip=5.0)
+    keys = [str(i) for i in range(len(tp))]
+    lv = torch.tensor(1.5, device=dev)
+
+    def transforms(p, t):  # guard → clip → SGD → apply, as the CPU runs them
+        state = {"0": {}, "1": {"0": {"trace": dict(zip(keys, t))}, "1": {"count": 0}}}
+        updates, _ = tx.update(optim.guard_finite(lv, dict(zip(keys, tg))), state, dict(zip(keys, p)))
+        optim.apply_updates(dict(zip(keys, p)), updates)
+
+    work, copies, wp, wt = clone(params), clone(params), clone(tp), clone(traces)
+    saved = mt.perturb_cuda(work, grads, 0.05, True)
+    plain = lambda fn: graph_time_ms(fn, calls=2, replays=3)  # noqa: E731
+    pieces = {
+        "perturb": (graph_time_ms(lambda: mt.perturb_cuda(work, grads, 0.05, True)),
+                    plain(lambda: mt.perturb_plain(work, grads, 0.05, True)),
+                    *bound_ms(mt.cost("perturb", elements)[1], mt.cost("perturb", elements)[0])),
+        "restore": (graph_time_ms(lambda: mt.restore_cuda(work, saved)),
+                    plain(lambda: mt.restore_plain(work, copies)),
+                    *bound_ms(mt.cost("restore", elements)[1], 0)),
+        "update": (graph_time_ms(lambda: mt.clip_sgd_apply_cuda(lv, tg, wt, wp, 5.0, -1e-3, 0.9)),
+                   plain(lambda: transforms(wp, wt)),
+                   *bound_ms(mt.cost("update", trained)[1], mt.cost("update", trained)[0])),
+    }
+    for name, (ms, plain_ms, b_ms, by) in pieces.items():
+        print(f"multi_tensor {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({by})")
+    return {"pieces": pieces, "max_abs_err": err, "leaves": len(params), "elements": elements}
 
 
 def first_pass_cost(torch, rec) -> None:
@@ -1247,10 +1369,13 @@ def trba_full_training(torch, k1, tmp: Path) -> int:
     return sum(launches)
 
 
-def east_full_training(torch, tmp: Path) -> None:
+def east_full_training(torch, tmp: Path) -> int:
     """Phase 10: ``EAST.train`` at the trainer's defaults (resnet101, 1024²,
-    batch 3, ASAM + SGD, OHEM, focal geometry, multiscale, freeze_first)."""
+    batch 3, ASAM + SGD, OHEM, focal geometry, multiscale, freeze_first) →
+    the multi-tensor kernels' launches, counted around each run: 5 a step
+    under ASAM, none under RAdam + Lookahead."""
     from manuscript_tpu_torch import EAST
+    from manuscript_tpu_torch.ops import multi_tensor as mt
     from manuscript_tpu_torch.train import east_train
     from manuscript_tpu_torch.utils.synthetic import build_page_dataset
 
@@ -1260,21 +1385,28 @@ def east_full_training(torch, tmp: Path) -> None:
     print(f"EAST data: 6 training and 3 validation pages (1024×768, 24 words each) with COCO "
           f"labels, written in {time.perf_counter() - t0:.2f} s")
     common = dict(experiment_root=str(tmp / "east"), target_size=1024, batch_size=3)
-    runs = {}
+    runs, asam_launches = {}, 0
     for name, kw in (("GPU-resident (cache_device=True), ASAM + SGD", dict(epochs=2, cache_device=True)),
                      ("streamed, host resize, ASAM + SGD", dict(epochs=1)),
                      ("RAdam + Lookahead + EMA, GPU-resident, 6 steps", dict(
                          epochs=3, cache_device=True, use_sam=False, use_ema=True))):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        mt.kernel_launches = 0
         with timed_steps(torch, east_train) as s:
             out = EAST.train(pages, coco, vpages, vcoco, model_name=f"run{len(runs)}", **common, **kw)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         runs[name] = out
+        # ASAM: sum of squares and perturbation, restore, sum of squares and
+        # update; RAdam + Lookahead runs none of them
+        per_step = 5 if kw.get("use_sam", True) else 0
         print(f"EAST.train resnet101 at 1024², {name}: step seconds {[round(x, 4) for x in s]} "
               f"(median after the first {statistics.median(s[1:]):.4f}); wall {wall:.2f} s; peak "
-              f"memory {peak:.2f} GiB")
+              f"memory {peak:.2f} GiB; multi_tensor launches {mt.kernel_launches} in {len(s)} "
+              f"steps")
+        check(mt.kernel_launches == per_step * len(s), (mt.kernel_launches, len(s)))
+        asam_launches += mt.kernel_launches
         for h in out["history"]:
             print(f"  epoch {h['epoch']}: train loss {h['train_loss']:.4f}, val loss "
                   f"{h['val_loss']:.4f}, soft dice {h['val_dice']:.4f}, {h['time']:.2f} s")
@@ -1284,6 +1416,7 @@ def east_full_training(torch, tmp: Path) -> None:
     page = np.full((1024, 768, 3), 235, np.uint8)
     result = det.predict(page)
     print(f"best.msgpack in EAST(weights_path=...): predict → {len(words_of(result['page']))} boxes")
+    return asam_launches
 
 
 # make_quality_ckpt's EAST recipe (RAdam + Lookahead, cosine warm restarts,
@@ -1343,8 +1476,9 @@ def east_epochs_card_vs_cpu(torch, tmp: Path) -> None:
     check(worst[0] <= EPOCHS_LOSS_REL, worst)
 
 
-def training(torch, k1) -> int:
-    """Phase 10 → the K1 steps of training's validations."""
+def training(torch, k1) -> tuple:
+    """Phase 10 → (the K1 steps of training's validations, the multi-tensor
+    kernels' launches of the full-width EAST runs)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     micro_train_steps(torch)
@@ -1353,8 +1487,8 @@ def training(torch, k1) -> int:
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         launches = trba_full_training(torch, k1, Path(tmp))
-        east_full_training(torch, Path(tmp))
-    return launches
+        mt_launches = east_full_training(torch, Path(tmp))
+    return launches, mt_launches
 
 
 class _RefState:
@@ -2053,8 +2187,8 @@ def kernel_cache(tmp: Path) -> None:
     cache = tmp / "kernel_cache"
     env = dict(os.environ, MANUSCRIPT_TPU_KERNEL_CACHE=str(cache))
     first = json.loads(subprocess_lines(["-c", _CACHE_LOAD], timeout=600, env=env))
-    check(first["cache"] == str(cache) and set(first["seconds"]) == {"attention_step", "quad_iou", "lanms"},
-          first)
+    check(first["cache"] == str(cache)
+          and set(first["seconds"]) == {"attention_step", "quad_iou", "multi_tensor", "lanms"}, first)
     check(all(Path(lib).parent == cache for lib in first["libs"]), first)
     empty = tmp / "empty"
     empty.mkdir()
@@ -2453,6 +2587,7 @@ EXAMPLE_RUNNER = """
 import json, runpy, sys
 sys.path.insert(0, {root!r})
 from manuscript_tpu_torch.ops import attention_step as k1, lanms_torch as k3, quad_iou as k2
+from manuscript_tpu_torch.ops import multi_tensor as mt
 sys.argv = sys.argv[1:]
 code = 0
 try:
@@ -2460,10 +2595,11 @@ try:
 except SystemExit as e:
     code = e.code or 0
 print("LAUNCHES " + json.dumps({{"attention_step": k1.launches, "quad_iou": k2.launches,
-                                "lanms_merge_scan": k3.launches}}))
+                                "lanms_merge_scan": k3.launches,
+                                "multi_tensor": mt.kernel_launches}}))
 sys.exit(code)
 """
-KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan")
+KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan", "multi_tensor")
 
 
 def start_examples(jobs: dict) -> tuple:
@@ -2816,6 +2952,7 @@ def main() -> int:
     print(f"device ops of one locality_aware_nms_parallel call (8192 candidates, "
           f"256 boxes): {nms_ops}")
     k3_rows_ = k3_rows(torch, k3, rng, dev)
+    mt_rows = multi_tensor_rows(torch, dev)
 
     # ---- 3. full width, random init ----------------------------------------
     phase("3 full width, random weights")
@@ -2919,7 +3056,7 @@ def main() -> int:
     # ---- 10. training ----------------------------------------------------------------
     phase("10 training")
     print(smi)
-    train_launches = training(torch, k1)
+    train_launches, mt_launches = training(torch, k1)
 
     # ---- 11. reference weights, TPS, vis -----------------------------------------------
     phase("11 reference weights, TPS, vis")
@@ -2969,8 +3106,11 @@ def main() -> int:
           f"phase 10: {train_launches} K1 steps; phase 11: {ref_launches}; phase 13, two shards "
           f"on one card: {mesh_result['launches']}; phase 14, the examples and notebooks: "
           f"{example_launches}), K3 launches of "
-          f"EAST(nms='device').predict on 3 pages (phase 8); K1 at R={r_row}, K2 gathered at "
-          f"4 × 8191 predecessor pairs, K3 at 8192 candidates")
+          f"EAST(nms='device').predict on 3 pages (phase 8), multi_tensor launches of the "
+          f"full-width EAST.train runs (phase 10); K1 at R={r_row}, K2 gathered at "
+          f"4 × 8191 predecessor pairs, K3 at 8192 candidates, multi_tensor at EAST-R101's "
+          f"leaf set, one ASAM step's perturbation, restore and update together")
+    mt_ms, mt_plain_ms, mt_bound = (sum(v[i] for v in mt_rows["pieces"].values()) for i in range(3))
     rows = [
         {"name": "attention_step", "route": "cuda",
          "source": "manuscript_tpu_torch/csrc/attention_step.cu",
@@ -2995,6 +3135,16 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None, "one_thread_walk_ms": k3_walk_ms,
          "examples_launches": example_launches["lanms_merge_scan"]},
+        {"name": "multi_tensor", "route": "cuda",
+         "source": "manuscript_tpu_torch/csrc/multi_tensor.cu",
+         "replaces": "none: the EAST trainer's optax updates under jax.jit, which XLA fuses "
+                     "(a kernel of the port only)",
+         "launches": mt_launches, "max_abs_err": mt_rows["max_abs_err"],
+         "ms": mt_ms, "plain_ms": mt_plain_ms, "bound_ms": mt_bound, "bound_by": "bytes",
+         "library_ms": None,
+         "pieces": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]}
+                    for k, v in mt_rows["pieces"].items()},
+         "examples_launches": example_launches["multi_tensor"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

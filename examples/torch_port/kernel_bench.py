@@ -17,15 +17,23 @@ against their XLA forms):
   the kernel's record (fix-up rounds, re-walks, rows) and ``default`` true
   for the wrapper's own setting;
 * a greedy TRBA decode of 64 crops at full width (hidden 256, 194 tokens,
-  25 steps), its decoder stepping through K1 and through the plain twin.
+  25 steps), its decoder stepping through K1 and through the plain twin;
+* the EAST step's multi-tensor kernels (``csrc/multi_tensor.cu``) at the
+  leaf set of ``EASTModel("resnet101")`` (348 leaves, 47,185,801
+  elements, the KxK convolutions' gradients channels_last as autograd
+  returns them): ASAM's perturbation (sum of squares and perturb), its
+  restore, each against its twin given the kernel's own norm, and the
+  guarded clip → SGD → apply (the optimizer's fused ``step``) over the same
+  leaves against the transforms it fuses (whose norm sums in another
+  order).
 
 On the card a kernel's ms is ``utils.profiling.graph_time_ms`` (CUDA events
 over a CUDA graph of repeated calls); the plain K3 loop and the decode,
 which wait on the host, are timed with CUDA events around whole calls.
 ``bound_ms`` is ``utils.profiling.bound_ms`` of the call's bytes and
 operations (``attention_step.step_cost``, ``quad_iou.gather_cost``/
-``matrix_cost``, one clip per live K3 step), as ``chip_smoke.py`` counts
-them. On the CPU (``--cpu``) the wrappers run their plain twins, so
+``matrix_cost``, one clip per live K3 step, ``multi_tensor.cost``), as
+``chip_smoke.py`` counts them. On the CPU (``--cpu``) the wrappers run their plain twins, so
 ``route`` says "plain" and both columns time the twin.
 ``MANUSCRIPT_TPU_BENCH_SMOKE=1`` runs tiny shapes. Every line names the
 card:
@@ -245,6 +253,64 @@ def main(argv=None):
     step = k1.step_cost(n_crops, n_crops, t_enc, h, e, v)
     emit("trba_greedy_decode", {"crops": n_crops, "steps": steps, "hidden": h, "T": t_enc},
          [got[1]], [want[1]], ms, plain, (steps * step[0], steps * step[1]))
+
+    # ---- the EAST step's multi-tensor kernels at the detector's leaf set ----
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+    from manuscript_tpu_torch.train import optim
+
+    with torch.device("meta"):
+        east = EASTModel("resnet50-micro" if smoke else "resnet101")
+    shapes = [p.shape for p in east.parameters()]
+    params = [rn(*s) for s in shapes]
+    grads = [rn(*s, sc=1e-2) for s in shapes]
+    grads = [g.contiguous(memory_format=torch.channels_last) if g.dim() == 4 else g for g in grads]
+    traces = [rn(*s, sc=1e-3) for s in shapes]
+    loss = torch.tensor(1.0, device=dev)
+    norm = torch.empty(1, device=dev)
+    config = {"leaves": len(shapes), "elements": sum(p.numel() for p in params)}
+    clone = lambda ts: [t.clone() for t in ts]  # noqa: E731
+    perturb = mt.perturb_cuda if cuda else mt.perturb_plain
+    if cuda:
+        got = clone(params)
+        saved = mt.perturb_cuda(got, grads, 0.05, True, norm_out=norm)
+        want = clone(params)
+        mt.perturb_plain(want, grads, 0.05, True, norm=norm[0])
+    else:
+        got, want = clone(params), clone(params)
+        saved = mt.perturb_plain(got, grads, 0.05, True)
+        mt.perturb_plain(want, grads, 0.05, True)
+    work = clone(params)
+    emit("multi_tensor_perturb", config, got, want,
+         kernel_ms(lambda: perturb(work, grads, 0.05, True)),
+         twin_ms(lambda: mt.perturb_plain(work, grads, 0.05, True)),
+         mt.cost("perturb", config["elements"]))
+    restore = mt.restore_cuda if cuda else mt.restore_plain
+    restore(got, saved)
+    copies = clone(params)
+    emit("multi_tensor_restore", config, got, params, kernel_ms(lambda: restore(work, saved)),
+         twin_ms(lambda: mt.restore_plain(work, copies)), mt.cost("restore", config["elements"]))
+    tx, _ = optim.build_east_optimizer(1e-3, 1, use_sam=True, grad_clip=5.0)
+    keys = [str(i) for i in range(len(shapes))]
+
+    def update(p, t):  # the kernels on a card; on the CPU the transforms
+        state = {"0": {}, "1": {"0": {"trace": dict(zip(keys, t))}, "1": {"count": 0}}}
+        state = tx.step(loss, dict(zip(keys, grads)), state, dict(zip(keys, p)))
+        return list(state["1"]["0"]["trace"].values())
+
+    def transforms(p, t):  # guard → clip → SGD → apply, as the optimizer states them
+        state = {"0": {}, "1": {"0": {"trace": dict(zip(keys, t))}, "1": {"count": 0}}}
+        updates, state = tx.update(optim.guard_finite(loss, dict(zip(keys, grads))), state,
+                                   dict(zip(keys, p)))
+        optim.apply_updates(dict(zip(keys, p)), updates)
+        return list(state["1"]["0"]["trace"].values())
+
+    p_k, p_t = clone(params), clone(params)
+    t_k, t_t = update(p_k, clone(traces)), transforms(p_t, clone(traces))
+    p_w, t_w = clone(params), clone(traces)  # the timed calls update these
+    emit("multi_tensor_update", config, p_k + t_k, p_t + t_t,
+         kernel_ms(lambda: update(p_w, t_w)), twin_ms(lambda: transforms(p_w, t_w)),
+         mt.cost("update", config["elements"]))
     return lines
 
 

@@ -9,7 +9,9 @@ geometry, multiscale, ``freeze_first``), files and step semantics:
   at params; the loss returned at the perturbed point; the BatchNorm
   running statistics moved once, by the unperturbed pass) or one plain
   gradient; the non-finite guard that zeroes the gradients and still steps
-  the optimizer; the update of the trainable parameters; EMA of the
+  the optimizer; the update of the trainable parameters (under SAM the
+  optimizer's fused ``step``: the kernels of ``ops.multi_tensor`` on a
+  card, the trace and the parameters updated in place); EMA of the
   parameters when ``use_ema``;
 * cosine warm restarts stepped per optimizer update; RAdam + Lookahead when
   ``use_sam`` is off;
@@ -292,7 +294,9 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
     Profiler regions: ``east.step`` around SAM's ``sam.first_pass`` and
     ``sam.second_pass`` (``east.gradient`` without SAM), then
     ``east.update``; each pass holds an ``east.forward`` (the loss) and an
-    ``optim.backward``."""
+    ``optim.backward``. Where ``tx`` has a fused ``step`` (the SAM route's
+    clip → SGD) the update runs through it: on a card the momentum trace
+    and the parameters are updated in place."""
     model = state.model
     model.train()
     loss_fn = lambda: east_train_loss(model, image, score, geo, use_ohem, ohem_ratio,
@@ -309,9 +313,12 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
                 loss = loss_fn()
                 grads = dict(zip(trainable, gradients(loss, list(trainable.values()), group)))
         with annotate("east.update"):
-            grads = guard_finite(loss, grads)
-            updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
-            apply_updates(trainable, updates)
+            if tx.step is not None:  # the fused guard, update and apply (SAM's clip → SGD)
+                state.opt_state = tx.step(loss, grads, state.opt_state, trainable)
+            else:
+                grads = guard_finite(loss, grads)
+                updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
+                apply_updates(trainable, updates)
             if state.ema is not None:
                 ema_update(state.ema, dict(model.named_parameters()), ema_decay)
         return loss.detach()

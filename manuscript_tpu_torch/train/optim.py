@@ -26,6 +26,14 @@ Where optax and ``torch.optim`` differ, this module follows optax:
 
 ``sam_gradient`` is SAM/ASAM's two gradient passes, ``lookahead`` a
 terminal transform, ``ema_update`` the parameter average.
+
+The EAST trainer's SAM route has a fused form besides: ``sam_gradient``'s
+perturbation and restore, and ``clip_sgd_step`` (the transform's ``step``,
+which ``build_east_optimizer`` attaches to clip → SGD), run through
+``ops.multi_tensor``: on a card its kernels, a few launches over all the
+leaves with no host sync, the momentum trace and the parameters updated
+in place; on the CPU the plain loops and the transforms themselves. The
+state keeps its layout either way.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import numpy as np
 import torch
 
 from ..models.layers import frozen_batch_stats
+from ..ops import multi_tensor
+from ..ops.multi_tensor import global_norm
 from ..parallel.mesh import average_gradients
 from ..utils.profiling import annotate
 
@@ -48,14 +58,13 @@ Schedule = Callable[[int], float]
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # step(loss, grads, state, params) → state: the non-finite guard, the
+    # update and its application to params in one, where a fused form exists
+    step: Optional[Callable] = None
 
 
 def _zeros(params: Tensors) -> Tensors:
     return {k: torch.zeros_like(p) for k, p in params.items()}
-
-
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t)) for t in tensors))
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -191,6 +200,12 @@ def lookahead(k: int = 5, alpha: float = 0.5) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def guard_finite(loss: torch.Tensor, grads: Tensors) -> Tensors:
+    """Zero every gradient when the loss is not finite (on the device)."""
+    finite = torch.isfinite(loss)
+    return {k: torch.where(finite, g, torch.zeros_like(g)) for k, g in grads.items()}
+
+
 @torch.no_grad()
 def apply_updates(params: Tensors, updates: Tensors, scale: Optional[float] = None) -> None:
     """params += updates (· scale), in place."""
@@ -274,20 +289,17 @@ def sam_gradient(
     ``sam.first_pass`` (the gradient at ``params`` and, inside it,
     ``sam.perturb``) and ``sam.second_pass`` (the gradient at the perturbed
     point and, inside it, ``sam.restore``); each gradient is an
-    ``optim.backward`` (``gradients``).
+    ``optim.backward`` (``gradients``). The perturbation and the restore
+    are ``ops.multi_tensor.perturb`` and ``restore``: on a card a few
+    kernels over all the leaves (region ``optim.multi_tensor``), the saved
+    parameters one flat buffer.
     With a process ``group`` both gradients are the global batch's
     (``gradients``), so every rank takes the same ε."""
     params = list(params)
     with annotate("sam.first_pass"):
         g1 = gradients(loss_fn(), params, group)
         with annotate("sam.perturb"), torch.no_grad():
-            scaled = [torch.abs(p) * g for p, g in zip(params, g1)] if adaptive else g1
-            scale = rho / (global_norm(scaled) + 1e-12)
-            e_w = ([torch.square(p) * g * scale for p, g in zip(params, g1)] if adaptive
-                   else [g * scale for g in g1])
-            saved = [p.detach().clone() for p in params]
-            for p, e in zip(params, e_w):
-                p.copy_(p + e)
+            saved = multi_tensor.perturb(params, g1, rho, adaptive)
     with annotate("sam.second_pass"):
         try:
             with frozen_batch_stats(model) if model is not None else nullcontext():
@@ -295,9 +307,34 @@ def sam_gradient(
                 g2 = gradients(loss2, params, group)
         finally:
             with annotate("sam.restore"), torch.no_grad():
-                for p, s in zip(params, saved):
-                    p.copy_(s)
+                multi_tensor.restore(params, saved)
     return loss2, g2
+
+
+def clip_sgd_step(tx: GradientTransformation, max_norm: float, lr: Schedule,
+                  momentum: float = 0.9) -> Callable:
+    """The fused ``step`` of ``tx`` = chain(clip_by_global_norm(max_norm),
+    sgd(lr, momentum)): step(loss, grads, state, params) → state zeroes the
+    gradients when ``loss`` is not finite (``guard_finite``), then clips,
+    traces, scales by −lr(count) and adds the result to ``params``. On a
+    card that is ``ops.multi_tensor.clip_sgd_apply``, two launches with the
+    trace and the parameters updated in place; on the CPU it is
+    ``guard_finite``, ``tx.update`` and ``apply_updates`` themselves. The
+    state keeps the chain's layout: {"0": {}, "1": {"0": {"trace"}, "1":
+    {"count"}}}."""
+
+    def step(loss, grads, state, params):
+        keys = list(params)
+        trace, count = state["1"]["0"]["trace"], state["1"]["1"]["count"]
+        p, g, t = ([d[k] for k in keys] for d in (params, grads, trace))
+        if not multi_tensor.on_card(p, g, t, loss=loss):
+            updates, state = tx.update(guard_finite(loss, grads), state, params)
+            apply_updates(params, updates)
+            return state
+        multi_tensor.clip_sgd_apply(loss, g, t, p, max_norm, -lr(count), momentum)
+        return {"0": {}, "1": {"0": {"trace": trace}, "1": {"count": count + 1}}}
+
+    return step
 
 
 def build_east_optimizer(
@@ -308,11 +345,13 @@ def build_east_optimizer(
     grad_clip: float = 5.0,
     t_0: int = 10,
 ) -> Tuple[GradientTransformation, Schedule]:
-    """EAST: clip → SGD(momentum 0.9) for SAM, else clip → RAdam (→
-    Lookahead); cosine warm restarts either way."""
+    """EAST: clip → SGD(momentum 0.9) for SAM, with its fused ``step``
+    (``clip_sgd_step``), else clip → RAdam (→ Lookahead); cosine warm
+    restarts either way."""
     schedule = cosine_warm_restarts(lr, t_0, steps_per_epoch)
     if use_sam:
-        return chain(clip_by_global_norm(grad_clip), sgd(schedule, 0.9)), schedule
+        tx = chain(clip_by_global_norm(grad_clip), sgd(schedule, 0.9))
+        return tx._replace(step=clip_sgd_step(tx, grad_clip, schedule, 0.9)), schedule
     tx = chain(clip_by_global_norm(grad_clip), radam(schedule))
     if use_lookahead:
         tx = chain(tx, lookahead(5, 0.5))

@@ -114,6 +114,7 @@ from .optim import (
     build_trba_optimizer,
     cosine_decay_schedule,
     gradients,
+    guard_finite,
 )
 from .trba_dataset import AugmentParams, OCRDataset, collate_attention, proportional_batches
 
@@ -306,12 +307,6 @@ def autocast_for(device: torch.device, compute_dtype: str):
     if compute_dtype != "float32":
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {compute_dtype!r}")
     return nullcontext()
-
-
-def guard_finite(loss: torch.Tensor, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Zero every gradient when the loss is not finite (on the device)."""
-    finite = torch.isfinite(loss)
-    return {k: torch.where(finite, g, torch.zeros_like(g)) for k, g in grads.items()}
 
 
 def train_step(

@@ -25,6 +25,7 @@ import contextlib
 import statistics
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -226,6 +227,34 @@ def launched_in(span, launches, workers) -> list:
     return out
 
 
+def orphan_launches(events, device) -> list:
+    """[(thread, start, [kernel])] of the device operations in ``device``
+    that no operator's ``kernels`` hold (matched by name and duration): the
+    profiler links a kernel to the operator active at its launch, and a
+    hand-written kernel launched outside any operator has none. Each is
+    placed at its CUDA launch call (a CPU event named ``cu…`` with the
+    kernel's correlation ``id``); one with no such call is left out."""
+    cpu = torch.autograd.DeviceType.CPU
+    held: Dict[tuple, int] = {}
+    for e in events:
+        if e.device_type == cpu:
+            for k in e.kernels:
+                held[(k.name, k.duration)] = held.get((k.name, k.duration), 0) + 1
+    calls = {e.id: e for e in events if e.device_type == cpu and not e.is_user_annotation
+             and e.name.startswith("cu") and getattr(e, "id", None) is not None}
+    out = []
+    for d in device:
+        key = (d.name, d.time_range.end - d.time_range.start)
+        if held.get(key, 0) > 0:
+            held[key] -= 1
+            continue
+        call = calls.get(getattr(d, "id", None))
+        if call is not None:
+            out.append((call.thread, call.time_range.start,
+                        [SimpleNamespace(name=d.name, device=0, duration=key[1])]))
+    return out
+
+
 def device_split(prof) -> Dict[str, object]:
     """What a finished ``trace()`` put on the card:
 
@@ -238,7 +267,10 @@ def device_split(prof) -> Dict[str, object]:
       launch-to-kernel correlation) started inside the region's span, on
       the region's thread or on a thread of autograd's engine
       (``launched_in``): a region around a backward pass counts its
-      kernels;
+      kernels. One that no operator launched (a hand-written kernel
+      launched through ctypes) is joined by its correlation id to its
+      CUDA launch call, whose start and thread take the operator's place
+      (``orphan_launches``);
     * ``launches``: the count of device operations;
     * ``device_ms``: their device time; ``window_ms``: the trace's span
       from its first to its last event; ``busy``: the share of that
@@ -263,9 +295,9 @@ def device_split(prof) -> Dict[str, object]:
         row[1] += (e.time_range.end - e.time_range.start) / 1e3
     annotations = [e for e in events if e.device_type == cpu and e.is_user_annotation]
     names = {e.name for e in annotations}  # nor is a region's span linked to its own event
-    launches = sorted(((e.thread, e.time_range.start, [k for k in e.kernels if k.name not in names])
-                       for e in events if e.device_type == cpu and e.kernels),
-                      key=lambda x: x[1])
+    launches = sorted([(e.thread, e.time_range.start, [k for k in e.kernels if k.name not in names])
+                       for e in events if e.device_type == cpu and e.kernels]
+                      + orphan_launches(events, device), key=lambda x: x[1])
     workers = autograd_threads(events)
     regions: Dict[str, Dict[str, float]] = {}
     for e in annotations:

@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -433,3 +434,274 @@ def test_perf_gate_floors(cuda):
     assert BENCH_WORDS[0] <= gate["words_per_page"] <= BENCH_WORDS[1], gate
     assert gate["device_only_pages_per_sec"] >= DEVICE_ONLY_FLOOR, gate
     assert PROGRAM_MFU_FLOOR <= gate["program_mfu"] <= 1.05, gate
+
+
+# ---- the EAST step's multi-tensor kernels (ops/multi_tensor.py) ----
+
+MT_DTYPES = [torch.float32, torch.float64, torch.bfloat16]
+# the kernels' norm against float64's: float32 and float64 sum in double; a
+# bfloat16 norm is rounded to bfloat16
+MT_NORM_REL = {torch.float32: 2e-6, torch.float64: 2e-6, torch.bfloat16: 4e-3}
+
+
+def _mt_leaves(dev, case, seed=0, scale=1.0, dtype=torch.float32):
+    """(params, grads) of a leaf set: odd sizes; views at storage offsets that
+    are not aligned to 4 elements; (O, C, K, K) leaves whose gradients are
+    channels_last, as autograd returns a convolution's here; or whose
+    parameters are channels_last too ("strided")."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda n, sc=1.0: (torch.randn(n, generator=g) * sc).to(dev, dtype)  # noqa: E731
+    if case == "sizes":
+        sizes = [1, 3, 512, 4097, 2**20 + 5]
+        return [rn(n) for n in sizes], [rn(n, scale) for n in sizes]
+    if case == "views":
+        sizes = [5, 4096, 33, 70001, 2]
+        pbase, gbase = rn(sum(sizes) + 40), rn(sum(sizes) + 40, scale)
+        params, grads, at = [], [], 0
+        for i, n in enumerate(sizes):
+            at += 1 + i % 3
+            params.append(pbase[at:at + n])
+            grads.append(gbase[at + 1:at + 1 + n])
+            at += n
+        assert any(p.data_ptr() % (4 * p.element_size()) for p in params)
+        return params, grads
+    shapes = [(64, 32, 3, 3), (16, 3, 7, 7), (128, 64, 1, 1), (64,), (5, 7, 3, 3)]
+    params = [rn(int(np.prod(s))).reshape(s) for s in shapes]
+    grads = [rn(int(np.prod(s)), scale).reshape(s) for s in shapes]
+    cl = lambda ts: [t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t  # noqa: E731
+                     for t in ts]
+    grads = cl(grads)
+    assert sum(not t.is_contiguous() for t in grads) == 3
+    return (cl(params) if case == "strided" else params), grads
+
+
+def _mt_bits(ts):
+    kind = {torch.float32: torch.int32, torch.float64: torch.int64, torch.bfloat16: torch.int16}
+    return [t.contiguous().view(kind[t.dtype]) for t in ts]
+
+
+def _mt_equal(got, want):
+    for a, b in zip(_mt_bits(got), _mt_bits(want), strict=True):
+        assert torch.equal(a, b)
+
+
+def _norm64(ts):
+    return float(torch.sqrt(sum((t.double() ** 2).sum() for t in ts)))
+
+
+def _mt_check_perturb(params, grads, adaptive):
+    """The kernels' perturbation against the twin given the kernels' norm
+    (bit for bit), the norm against float64's, the restore exact; →
+    (perturbed params, norm)."""
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+
+    dev, dtype = params[0].device, params[0].dtype
+    p_k, p_t = [p.clone() for p in params], [p.clone() for p in params]
+    norm = torch.empty(1, device=dev, dtype=dtype)
+    saved = mt.perturb_cuda(p_k, grads, 0.05, adaptive, norm_out=norm)
+    mt.perturb_plain(p_t, grads, 0.05, adaptive, norm=norm[0])
+    _mt_equal(p_k, p_t)
+    want = _norm64([p.abs() * g for p, g in zip(params, grads)] if adaptive else grads)
+    assert abs(float(norm) - want) <= MT_NORM_REL[dtype] * want, (float(norm), want)
+    out = [p.clone() for p in p_k]
+    mt.restore_cuda(p_k, saved)
+    _mt_equal(p_k, params)
+    return out, norm
+
+
+def _mt_check_update(params, grads, loss_value, loss_dtype=None):
+    """The kernels' guarded clip → SGD → apply against the twin given the
+    kernels' norm (bit for bit), the norm against float64's; the traces in
+    the parameters' layout; → (params, traces, norm)."""
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+    from multi_tensor_twin import clip_sgd_apply_twin
+
+    dev, dtype = params[0].device, params[0].dtype
+    gen = torch.Generator().manual_seed(9)
+    traces = [(torch.randn(p.shape, generator=gen) * 0.1).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last if not p.is_contiguous() else torch.contiguous_format)
+        for p in params]
+    loss = torch.tensor(loss_value, device=dev, dtype=loss_dtype or dtype)
+    p_k, p_t = [p.clone() for p in params], [p.clone() for p in params]
+    t_k, t_t = [t.clone() for t in traces], [t.clone() for t in traces]
+    norm = torch.empty(1, device=dev, dtype=dtype)
+    mt.clip_sgd_apply_cuda(loss, grads, t_k, p_k, 5.0, -0.125, 0.9, norm_out=norm)
+    clip_sgd_apply_twin(loss, grads, t_t, p_t, 5.0, -0.125, 0.9, norm=norm[0])
+    _mt_equal(p_k, p_t)
+    _mt_equal(t_k, t_t)
+    want = _norm64(grads) if np.isfinite(loss_value) else 0.0
+    assert abs(float(norm) - want) <= MT_NORM_REL[dtype] * want, (float(norm), want)
+    assert all(torch.isfinite(t).all() for t in p_k + t_k)
+    return p_k, t_k, norm
+
+
+@pytest.mark.parametrize("dtype", MT_DTYPES)
+@pytest.mark.parametrize("case", ["sizes", "views", "channels_last", "strided"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_multi_tensor_perturb_matches_the_twin(cuda, case, adaptive, dtype):
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+
+    params, grads = _mt_leaves(cuda, case, seed=len(case), dtype=dtype)
+    before = mt.kernel_launches
+    _mt_check_perturb(params, grads, adaptive)
+    assert mt.kernel_launches == before + 3  # sum of squares, perturbation, restore
+
+
+@pytest.mark.parametrize("dtype", MT_DTYPES)
+@pytest.mark.parametrize("case", ["sizes", "views", "channels_last", "strided"])
+@pytest.mark.parametrize("loss_value,scale", [(2.0, 1e-4), (2.0, 1.0), (float("nan"), 1.0),
+                                              (float("inf"), 1e-4)])
+def test_multi_tensor_update_matches_the_twin(cuda, case, loss_value, scale, dtype):
+    """Under the clip and clipped (scale 1: the norm passes 5), and with a
+    non-finite loss (every gradient zeroed, the trace decays)."""
+    params, grads = _mt_leaves(cuda, case, seed=7, scale=scale, dtype=dtype)
+    _, _, norm = _mt_check_update(params, grads, loss_value)
+    if np.isfinite(loss_value):
+        assert (float(norm) < 5.0) == (scale < 1)
+
+
+def _mt_east_r101(dev):
+    """The parameters of a seeded EASTModel("resnet101") and their gradients
+    from one ASAM-style backward of a small batch (their layouts as autograd
+    returns them)."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.train import east_train
+    from manuscript_tpu_torch.utils.weights import init_random_
+
+    model = init_random_(EASTModel("resnet101"), 0).to(dev)
+    model.train()
+    g = torch.Generator(device=dev).manual_seed(0)
+    image = torch.randint(0, 256, (1, 128, 128, 3), dtype=torch.uint8, device=dev, generator=g)
+    score = (torch.rand(1, 32, 32, device=dev, generator=g) > 0.8).float()
+    geo = torch.randn(1, 32, 32, 8, device=dev, generator=g) * 4
+    params = list(model.parameters())
+    loss = east_train.east_train_loss(model, image, score, geo, True, 0.5, True, 2.0)
+    grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+    grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+    return [p.detach() for p in params], grads
+
+
+def test_multi_tensor_on_the_east_r101_leaf_set_repeats_bit_for_bit(cuda):
+    """The detector's 348 leaves (47.2 M elements, the KxK convolutions'
+    gradients channels_last) against the twin, and two runs equal bit for
+    bit."""
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+
+    params, grads = _mt_east_r101(cuda)
+    assert len(params) == 348 and sum(p.numel() for p in params) == 47_185_801
+    assert any(not gr.is_contiguous() for gr in grads)
+    assert mt.on_card(params, grads)
+    runs = [_mt_check_perturb(params, grads, True) for _ in range(2)]
+    _mt_equal(runs[0][0] + [runs[0][1]], runs[1][0] + [runs[1][1]])
+    norm = _norm64(grads)
+    for total in (1.0, 100.0):  # under the clip (5) and over it
+        g = [gr * (total / norm) for gr in grads]
+        runs = [_mt_check_update(params, g, 1.5) for _ in range(2)]
+        _mt_equal(runs[0][0] + runs[0][1] + [runs[0][2]], runs[1][0] + runs[1][1] + [runs[1][2]])
+
+
+def test_multi_tensor_step_does_not_wait_for_the_card(cuda):
+    """With ≥ 50 ms of work queued on the stream (``torch.cuda._sleep``) a
+    fused perturbation, restore and update at the EAST-R101 leaf set return
+    on the host long before that work ends: no launch synchronises."""
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+
+    params, grads = _mt_east_r101(cuda)
+    params = [p.clone() for p in params]
+    traces = [torch.zeros_like(p) for p in params]
+    loss = torch.tensor(1.0, device=cuda)
+
+    def fused():
+        mt.restore(params, mt.perturb(params, grads, 0.05, True))
+        mt.clip_sgd_apply(loss, grads, traces, params, 5.0, -1e-3, 0.9)
+
+    before = mt.kernel_launches
+    fused()  # build, load and allocate
+    assert mt.kernel_launches == before + 5
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(10_000_000 * 100 / start.elapsed_time(end))  # ~100 ms of sleep
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(cycles)
+    done.record()
+    t0 = time.perf_counter()
+    fused()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    pending = not done.query()
+    torch.cuda.synchronize()
+    print(f"fused perturb + restore + update at 348 leaves: {host_ms:.3f} host ms "
+          f"behind ~100 ms of queued work")
+    assert pending and host_ms < 25.0, host_ms
+
+
+def test_a_traced_asam_step_opens_three_multi_tensor_spans(cuda, tmp_path):
+    """float32 and float64 on the card alike: one ``optim.multi_tensor`` span
+    in each of ``sam.perturb``, ``sam.restore`` and ``east.update``, and 5
+    kernel launches a step."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+    from manuscript_tpu_torch.train import east_train, optim
+    from manuscript_tpu_torch.utils import profiling
+
+    for dtype in (torch.float32, torch.float64):
+        torch.manual_seed(0)
+        model = EASTModel("resnet50-micro").to(cuda, dtype)
+        mask = east_train.freeze_mask(model, True)
+        trainable = {k: p for k, p in model.named_parameters() if mask[k]}
+        tx, _ = optim.build_east_optimizer(1e-3, 2, use_sam=True)
+        state = east_train.EASTTrainState(model, tx.init(trainable), None)
+        image = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, device=cuda)
+        score = (torch.rand(2, 16, 16, device=cuda) > 0.7).float().to(dtype)
+        geo = (torch.randn(2, 16, 16, 8, device=cuda) * 4).to(dtype)
+        east_train.train_step(state, tx, trainable, image, score, geo)  # warm
+        before = mt.kernel_launches
+        with profiling.trace(tmp_path / str(dtype)) as prof:
+            east_train.train_step(state, tx, trainable, image, score, geo)
+        assert mt.kernel_launches == before + 5, dtype
+        cpu = torch.autograd.DeviceType.CPU
+        regions = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cpu and e.is_user_annotation]
+        fused = [r for r in regions if r[0] == "optim.multi_tensor"]
+        assert len(fused) == 3, regions
+        for outer in ("sam.perturb", "sam.restore", "east.update"):
+            (o,) = [r for r in regions if r[0] == outer]
+            assert len([r for r in fused if o[1] <= r[1] and r[2] <= o[2]]) == 1
+
+
+def test_multi_tensor_update_on_the_card_is_in_place_and_refuses_what_it_cannot_take(cuda):
+    """``tx.step`` on the card writes the trace and the parameters in place
+    and keeps the state's layout; a float64 step takes a float32 NaN loss
+    (every gradient zeroed); leaves on two devices, of two types, or a
+    written tensor of another layout raise ``ValueError``."""
+    from manuscript_tpu_torch.ops import multi_tensor as mt
+    from manuscript_tpu_torch.train import optim
+
+    tx, schedule = optim.build_east_optimizer(0.5, 2, use_sam=True, grad_clip=1e9, t_0=1)
+    params = {"w": torch.zeros(4, device=cuda), "k": torch.zeros(2, 3, 2, 2, device=cuda)}
+    state = tx.init(params)
+    trace, w = state["1"]["0"]["trace"]["w"], params["w"]
+    state["1"]["1"]["count"] = 5
+    grads = {k: torch.ones_like(p) for k, p in params.items()}
+    out = tx.step(torch.tensor(1.0, device=cuda), grads, state, params)
+    assert out["1"]["0"]["trace"]["w"] is trace and torch.equal(trace, torch.ones(4, device=cuda))
+    assert out["1"]["1"]["count"] == 6 and out["0"] == {}
+    assert params["w"] is w and torch.equal(w, torch.full((4,), -schedule(5), device=cuda))
+
+    p64 = [torch.ones(5, device=cuda, dtype=torch.float64)]
+    t64 = [torch.ones_like(p64[0])]
+    mt.clip_sgd_apply(torch.tensor(float("nan"), device=cuda), [torch.ones_like(p64[0])], t64,
+                      p64, 5.0, -1.0, 0.5)
+    assert torch.equal(t64[0], torch.full_like(t64[0], 0.5)) and torch.equal(p64[0], t64[0])
+
+    p = [torch.zeros(4, 6, device=cuda)]
+    with pytest.raises(ValueError, match="one type on one card"):
+        mt.perturb(p, [torch.zeros(4, 6, device=cuda, dtype=torch.float64)], 0.05, True)
+    with pytest.raises(ValueError, match="one type on one card"):
+        mt.perturb(p, [torch.zeros(4, 6)], 0.05, True)
+    odd = [torch.zeros(6, 4, device=cuda).t()]
+    with pytest.raises(ValueError, match="neither row-major nor channels_last"):
+        mt.perturb(odd, [torch.zeros(4, 6, device=cuda)], 0.05, True)

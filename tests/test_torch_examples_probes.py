@@ -71,7 +71,8 @@ def test_kernel_bench_rows_match_their_twins(monkeypatch, capsys):
     lines = smoke_lines("kernel_bench", monkeypatch, capsys)
     assert [ln["kernel"] for ln in lines] == [
         "attention_step", "attention_step", "quad_iou_gather", "quad_iou_matrix",
-        "lanms_merge_scan", "lanms_merge_scan", "trba_greedy_decode"]
+        "lanms_merge_scan", "lanms_merge_scan", "trba_greedy_decode", "multi_tensor_perturb",
+        "multi_tensor_restore", "multi_tensor_update"]
     assert [ln.get("field") for ln in lines if ln["kernel"] == "lanms_merge_scan"] == [
         "words", "one chain"]
     for ln in lines:

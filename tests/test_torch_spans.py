@@ -104,10 +104,11 @@ def test_launched_in_takes_the_span_thread_and_autograd_workers_inside_the_span(
     assert profiling.autograd_threads(events) == {7}
 
 
-def _event(name, thread, start, end, device="cpu", annotation=False, kernels=()):
+def _event(name, thread, start, end, device="cpu", annotation=False, kernels=(), id=None):
     dt = torch.autograd.DeviceType.CUDA if device == "cuda" else torch.autograd.DeviceType.CPU
     return SimpleNamespace(name=name, thread=thread, device_type=dt, is_user_annotation=annotation,
-                           time_range=SimpleNamespace(start=start, end=end), kernels=list(kernels))
+                           time_range=SimpleNamespace(start=start, end=end), kernels=list(kernels),
+                           id=id)
 
 
 def test_device_split_counts_a_backward_launched_on_autograds_thread():
@@ -131,3 +132,27 @@ def test_device_split_counts_a_backward_launched_on_autograds_thread():
     split = profiling.device_split(SimpleNamespace(events=lambda: events))
     assert split["regions"] == {"optim.backward": {"count": 1, "launches": 2, "device_ms": 0.012}}
     assert split["launches"] == 4
+
+
+def test_device_split_places_a_kernel_no_operator_launched_at_its_launch_call():
+    """A hand-written kernel launched through ctypes inside a region but
+    outside any operator: no operator holds it, so its CUDA launch call
+    (the same correlation id) places it; one launched after the region is
+    not the region's, and a kernel an operator holds counts once."""
+    k = lambda name, us: SimpleNamespace(name=name, device=0, duration=us)
+    events = [
+        _event("east.update", 1, 100, 200, annotation=True, id=1),
+        _event("optim.multi_tensor", 1, 110, 150, annotation=True, id=2),
+        _event("aten::fill_", 1, 112, 113, kernels=[k("fill", 2.0)], id=5),
+        _event("cudaLaunchKernel", 1, 112.5, 112.8, id=9),
+        _event("cudaLaunchKernel", 1, 120, 121, id=16),
+        _event("cudaLaunchKernel", 1, 250, 251, id=17),
+        _event("fill", 0, 114, 116, device="cuda", id=9),
+        _event("update_kernel", 0, 122, 130, device="cuda", id=16),
+        _event("update_kernel", 0, 252, 260, device="cuda", id=17),
+        _event("optim.multi_tensor", 0, 122, 130, device="cuda", annotation=True, id=2),
+    ]
+    split = profiling.device_split(SimpleNamespace(events=lambda: events))
+    for region in ("east.update", "optim.multi_tensor"):
+        assert split["regions"][region] == {"count": 1, "launches": 2, "device_ms": 0.010}
+    assert split["launches"] == 3
