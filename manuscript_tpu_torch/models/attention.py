@@ -16,32 +16,26 @@ share that word's encoder memory (not repeated k times, as the JAX package
 does; the values are the same) with the GNMT length
 penalty ((5+t)^α/6^α), finished beams that only continue with EOS at log-prob
 0, temperature-scaled logits, BLANK masked at −1e4, and the chosen beams'
-logits traced back through the backpointers; each of beam's steps is a
-profiler region ``beam.step`` (``utils/profiling.annotate``). Parameters
+logits traced back through the backpointers (``models/beam.py``, which
+TrOCR's decoder shares); each of beam's steps is a profiler region
+``beam.step`` (``utils/profiling.annotate``). Parameters
 keep the flax names and layouts; the decoder computes in float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.attention_step import attention_step
 from ..utils.profiling import annotate
+from .beam import Beam, topk_lowest_index  # noqa: F401  (re-exported)
 from .layers import dropout, float32_or_wider, rand_rows
 from .rnn import lstm_cell_step
 
-NEG_INF = -1e30
 BLANK_MASK = -1e4
-
-
-def topk_lowest_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, ties to the lowest index (as
-    ``jax.lax.top_k``; ``torch.topk`` on CUDA does not promise that)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 class AttentionDecoder(nn.Module):
@@ -167,52 +161,17 @@ class AttentionDecoder(nn.Module):
         tokens (B, max_len)); the logits are temperature-scaled and
         blank-masked, as the confidence computation consumes them."""
         b = enc.shape[0]
-        k, v, hdim = beam_size, self.num_classes, self.hidden_size
-        dev = enc.device
+        k, hdim = beam_size, self.hidden_size
         enc, proj_enc = self._prepare(enc)  # one row per word, shared by its k beams
-        bidx = torch.arange(b, device=dev)[:, None]
-
-        tok = torch.full((b, k), self.sos_id, dtype=torch.int64, device=dev)
-        scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-        scores[:, 0] = 0.0
+        beam = Beam(b, k, self.num_classes, self.sos_id, self.eos_id, enc.device)
         h = enc.new_zeros(b, k, hdim)
         c = enc.new_zeros(b, k, hdim)
-        finished = torch.zeros(b, k, dtype=torch.bool, device=dev)
-        trace = []
         for t in range(max_len):
             with annotate("beam.step"):
                 h2, c2 = self._step(
                     h.reshape(b * k, hdim), c.reshape(b * k, hdim), enc, proj_enc,
-                    tok.reshape(b * k), beam=k,
+                    beam.tok.reshape(b * k), beam=k,
                 )
-                logits = self._logits(h2) / max(temperature, 1e-6)
-                log_probs = torch.log_softmax(logits, dim=-1).reshape(b, k, v)
-                # finished beams: only EOS continues, at log-prob 0
-                log_probs = torch.where(
-                    finished[:, :, None], torch.full_like(log_probs, NEG_INF), log_probs
-                )
-                log_probs[..., self.eos_id] = torch.where(
-                    finished, torch.zeros_like(scores), log_probs[..., self.eos_id]
-                )
-                next_scores = scores[:, :, None] + log_probs
-                lp = 1.0
-                if alpha > 0:  # f32 like the reference: (5 + (t+1))^α / 6^α
-                    lp = float(torch.tensor(6.0 + t, dtype=torch.float32) ** alpha / (6.0**alpha))
-                    next_scores = next_scores / lp
-                top_scores, top_idx = topk_lowest_index(next_scores.reshape(b, k * v), k)
-                parent = top_idx // v
-                tok = top_idx % v
-                h = h2.reshape(b, k, hdim)[bidx, parent]
-                c = c2.reshape(b, k, hdim)[bidx, parent]
-                finished = finished[bidx, parent] | (tok == self.eos_id)
-                scores = top_scores * lp if alpha > 0 else top_scores
-                trace.append((tok, parent, logits.reshape(b, k, v)))
-
-        beam = torch.argmax(scores, dim=-1)
-        b1 = bidx[:, 0]
-        tokens, out_logits = [], []
-        for tok_t, par_t, log_t in reversed(trace):
-            tokens.append(tok_t[b1, beam])
-            beam = par_t[b1, beam]
-            out_logits.append(log_t[b1, beam])
-        return torch.stack(out_logits[::-1], 1), torch.stack(tokens[::-1], 1)
+                beam.advance(self._logits(h2), t, alpha, temperature)
+                h, c = beam.reorder(h2), beam.reorder(c2)
+        return beam.backtrace()

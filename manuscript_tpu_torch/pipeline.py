@@ -5,7 +5,8 @@ Two routes, as in the JAX package:
 * the fused route, ``FusedOCR`` (native crops by default, device crops with
   ``crop_source="device"`` or ``crop_scale`` > 1), taken when both parts are
   the port's own EAST and TRBA wrappers and ``fused`` is "auto" or True;
-* the classic host loop, taken with ``fused=False`` or duck-typed parts:
+* the classic host loop, taken with ``fused=False``, duck-typed parts or another
+  recognizer of the port (``TrOCR``):
   ``detector.predict(image, vis=False, profile=...)`` returns a dict with
   ``"page"``, a tuple whose first element is a Page, or a bare Page; each
   block's words are put in reading order, cropped axis-aligned from the
@@ -143,9 +144,13 @@ class Pipeline:
 
     @staticmethod
     def _fusable(detector, recognizer) -> bool:
-        return all(
-            hasattr(detector, a) for a in ("model", "maps", "max_boxes", "max_candidates")
-        ) and all(hasattr(recognizer, a) for a in ("model", "recognize_tensor", "itos"))
+        """Whether ``FusedOCR`` can take the parts: the port's own EAST and
+        TRBA wrappers alone (another recognizer with the same surface, such
+        as ``TrOCR``, takes the classic route)."""
+        from .detectors import EAST
+        from .recognizers import TRBA
+
+        return isinstance(detector, EAST) and isinstance(recognizer, TRBA)
 
     def _call_recognizer(self, word_images):
         """Recognize crops with the pipeline's decode settings when the

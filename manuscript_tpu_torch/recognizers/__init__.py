@@ -7,9 +7,11 @@ from .charset import (
     save_charset,
 )
 from .trba import TRBA
+from .trocr import TrOCR
 
 __all__ = [
     "TRBA",
+    "TrOCR",
     "default_charset",
     "load_charset",
     "save_charset",

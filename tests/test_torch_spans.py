@@ -156,3 +156,23 @@ def test_device_split_places_a_kernel_no_operator_launched_at_its_launch_call():
     for region in ("east.update", "optim.multi_tensor"):
         assert split["regions"][region] == {"count": 1, "launches": 2, "device_ms": 0.010}
     assert split["launches"] == 3
+
+
+def test_a_trocr_call_nests_encode_decode_cross_kv_and_a_step_a_token(tmp_path):
+    from manuscript_tpu_torch.models.trocr import TrOCRConfig
+    from manuscript_tpu_torch.recognizers import TrOCR
+
+    config = TrOCRConfig(image_size=32, patch_size=8, enc_hidden=32, enc_layers=1, enc_heads=4,
+                         enc_mlp=64, d_model=32, dec_layers=1, dec_heads=4, dec_ffn=64, vocab_size=50,
+                         max_position_embeddings=16)
+    rec = TrOCR(device="cpu", allow_random_init=True, max_length=4, config=config)
+    lines = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8)
+    with profiling.trace(tmp_path) as prof:
+        rec.recognize_tensor(lines, "beam", beam_size=2)
+    regions = _regions(prof)
+    (call,) = [r for r in regions if r[0] == "trocr.recognize"]
+    assert len(_inside(regions, "trocr.encode", call)) == 1
+    (decode,) = _inside(regions, "trocr.decode", call)
+    assert len(_inside(regions, "trocr.cross_kv", decode)) == 1
+    assert len(_inside(regions, "trocr.step", decode)) == rec.max_length == 4
+    assert len([r for r in regions if r[0].startswith("trocr.")]) == 1 + 1 + 1 + 1 + 4
