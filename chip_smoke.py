@@ -28,7 +28,11 @@ run with a traceback and a non-zero exit:
    the restore, and the guarded clip → SGD → apply over the 315 trainable
    leaves (under the clip, over it, NaN loss) bit-equal to their twins
    given the kernel's own norm, the norms within 2e-6 of float64's, each
-   timed beside its plain form;
+   timed beside its plain form; K7, the train-mode BatchNorm with residual
+   and ReLU (csrc/batch_norm.cu), at the EAST cell's stem, layer3 and
+   layer4 shapes: forward and backward bit-equal over two runs and within
+   1e-4 of the twin, each timed beside its bound, the twin and
+   ``torch.native_batch_norm`` (the yardstick only);
 3. full width with random weights from a seed: EAST resnet50 at 1280² (q=2,
    8192 candidates, 1024 boxes, bf16) and TRBA full (64×256, hidden 256,
    194 tokens, beam 8, max_len 25); first the recognizer's first and second
@@ -833,6 +837,77 @@ def multi_tensor_rows(torch, dev) -> dict:
     return {"pieces": pieces, "max_abs_err": err, "leaves": len(params), "elements": elements}
 
 
+def batch_norm_rows(torch, dev) -> dict:
+    """Phase 2, K7 (``ops.batch_norm``) at the EAST cell's shapes at side 1024,
+    batch 3, channels_last float32 with the ReLU: the stem (786,432 rows ×
+    64), a layer3 block's last BatchNorm (12,288 × 1024, with the residual)
+    and layer4's (3,072 × 2048, with the residual). Forward and backward
+    against the twin (within 1e-4 of the largest entry) and bit-equal over
+    two runs; each timed (``graph_time_ms``) beside its bound
+    (``batch_norm.cost``), the twin, and ``torch.native_batch_norm`` and
+    its backward (the library's BatchNorm alone, no ReLU or residual: the
+    yardstick, which the port never calls) → {"rows": {shape: {"forward" |
+    "backward": (ms, plain ms, bound ms, bound by, library ms)}},
+    "max_abs_err"}."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+    from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cl = torch.channels_last
+    plain = lambda fn: graph_time_ms(fn, calls=2, replays=3)  # noqa: E731
+    rows, err = {}, 0.0
+    for name, shape, res in (("stem", (3, 64, 512, 512), False),
+                             ("layer3", (3, 1024, 64, 64), True),
+                             ("layer4", (3, 2048, 32, 32), True)):
+        c = shape[1]
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).contiguous(memory_format=cl)
+        r = torch.randn(shape, device=dev, generator=gen).contiguous(memory_format=cl) if res else None
+        g = torch.randn(shape, device=dev, generator=gen).contiguous(memory_format=cl)
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = torch.randn(c, device=dev, generator=gen) * 0.3
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        runs = []
+        for _ in range(2):
+            y, st = bn.forward_cuda(x, r, w, b, rm, rv, False, 0.9, 1e-5, True)
+            runs.append([y, st, *(t for t in bn.backward_cuda(g, x, y, st, w, b, True, res)
+                                  if t is not None)])
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, e) for a, e in zip(*runs)), f"K7 {name}: two runs differ")
+        y, st = runs[0][:2]
+        want = [*bn.forward_plain(x, r, w, b, rm, rv, False, 0.9, 1e-5, True),
+                *(t for t in bn.backward_plain(g, x, y, st, w, True, res) if t is not None)]
+        gap = max(float((a - e).abs().max()) / max(1.0, float(e.abs().max()))
+                  for a, e in zip(runs[0], want))
+        err = max(err, gap)
+        check(gap <= 1e-4, (name, gap))
+        O, C, I, _ = bn.layout(x)
+        f_ops, f_bytes = bn.cost(O, C, I, torch.float32, res, True, False)
+        b_ops, b_bytes = bn.cost(O, C, I, torch.float32, res, True, True)
+        lm, lv = rm.clone(), rv.clone()
+        _, save_mean, save_invstd = torch.native_batch_norm(x, w, b, lm, lv, True, 0.1, 1e-5)
+        rows[name] = {
+            "forward": (graph_time_ms(lambda: bn.forward_cuda(x, r, w, b, rm, rv, False, 0.9, 1e-5,
+                                                              True)),
+                        plain(lambda: bn.forward_plain(x, r, w, b, rm, rv, False, 0.9, 1e-5, True)),
+                        *bound_ms(f_bytes, f_ops),
+                        graph_time_ms(lambda: torch.native_batch_norm(x, w, b, lm, lv, True, 0.1,
+                                                                      1e-5))),
+            "backward": (graph_time_ms(lambda: bn.backward_cuda(g, x, y, st, w, b, True, res)),
+                         plain(lambda: bn.backward_plain(g, x, y, st, w, True, res)),
+                         *bound_ms(b_bytes, b_ops),
+                         graph_time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+                             g, x, w, lm, lv, save_mean, save_invstd, True, 1e-5,
+                             [True, True, True]))),
+        }
+        for part, (ms, plain_ms, b_ms, by, lib_ms) in rows[name].items():
+            print(f"K7 batch_norm {name} {tuple(shape)} channels_last{' + residual' * res} + ReLU "
+                  f"{part}: ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({by}; "
+                  f"{100 * b_ms / ms:.1f} % of it) library_ms {lib_ms:.4f}")
+        print(f"K7 batch_norm {name}: two runs bit-equal; against the twin {gap:.3e}")
+        del x, r, g, y, st, runs, want
+    return {"rows": rows, "max_abs_err": err}
+
+
 def first_pass_cost(torch, rec) -> None:
     """The recognizer's first pass at a batch shape against its second, at
     full width (beam 8): what ``FusedOCR.warm_next_bucket`` spends on a zero
@@ -1288,11 +1363,14 @@ def timed_steps(torch, module):
         module.train_step = real
 
 
-def trba_full_training(torch, k1, tmp: Path) -> int:
-    """Phase 10: ``TRBA.train`` at full width on rendered word crops → the K1
-    steps counted around its validations."""
+def trba_full_training(torch, k1, tmp: Path) -> tuple:
+    """Phase 10: ``TRBA.train`` at full width on rendered word crops → (the
+    K1 steps counted around its validations, K7's launches counted around
+    its two runs: 4 a train-mode BatchNorm a step)."""
     from manuscript_tpu_torch import TRBA
+    from manuscript_tpu_torch.models.layers import BatchNorm
     from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.ops import batch_norm as bn
     from manuscript_tpu_torch.train import optim, trba_train
     from manuscript_tpu_torch.train.trba_dataset import OCRDataset, collate_attention
     from manuscript_tpu_torch.recognizers.charset import default_charset
@@ -1308,17 +1386,23 @@ def trba_full_training(torch, k1, tmp: Path) -> int:
                hidden_size=256, max_len=25, batch_size=64, lr=1e-3, optimizer="adam",
                grad_clip=5.0, eval_beam=True, beam_size=8, epochs=2, seed=0)
     per_epoch = -(-64 // 64) * (26 + 25)  # one greedy (max_len + 1) and one beam (max_len) pass
+    itos = default_charset()
+    stoi = {s: i for i, s in enumerate(itos)}
+    with torch.device("meta"):
+        layers = sum(isinstance(m, BatchNorm) for m in TRBAModel(
+            len(itos), 256, stoi["<SOS>"], stoi["<EOS>"], stoi.get("<BLANK>")).modules())
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
+    k1.launches = bn.launches = 0
     with timed_steps(torch, trba_train) as first_s:
         first = TRBA.train(tsv, imgs, vtsv, vimgs, config=cfg)
-    launches = [k1.launches]
+    launches, bn_launches = [k1.launches], [bn.launches]
     exp = Path(first["exp_dir"])
-    k1.launches = 0
+    k1.launches = bn.launches = 0
     with timed_steps(torch, trba_train) as again_s:
         again = TRBA.train(tsv, imgs, vtsv, vimgs,
                            config=dict(cfg, exp_name=exp.name, resume=str(exp), epochs=3))
     launches.append(k1.launches)
+    bn_launches.append(bn.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     history = first["history"] + again["history"]
     steps = first_s[1:] + again_s[1:]
@@ -1336,6 +1420,13 @@ def trba_full_training(torch, k1, tmp: Path) -> int:
     print(f"K1 steps in training's validation: {launches} for 2 + 1 epochs of one 64-crop batch "
           f"(expected {per_epoch} a epoch: 26 greedy + 25 beam)")
     check(launches == [2 * per_epoch, per_epoch], launches)
+    # every parameter trains: each BatchNorm's x needs a gradient, so each
+    # runs its two forward and two backward launches a step; validation
+    # runs in eval mode (cuDNN), none
+    want = [4 * layers * len(first_s), 4 * layers * len(again_s)]
+    print(f"K7 launches in the two TRBA.train runs: {bn_launches} for {len(first_s)} + "
+          f"{len(again_s)} steps of {layers} train-mode BatchNorms (expected {want})")
+    check(bn_launches == want, (bn_launches, want))
 
     rec = TRBA(weights_path=exp / "checkpoints" / "best_acc.msgpack")
     crops = [render_word(w, np.random.default_rng(3)) for w in ("ink", "codex", "margin")]
@@ -1343,8 +1434,6 @@ def trba_full_training(torch, k1, tmp: Path) -> int:
     print(f"best_acc.msgpack in TRBA(weights_path=...): {[(r['text'], round(r['confidence'], 4)) for r in got]}")
     check(len(got) == 3 and all(np.isfinite(r["confidence"]) for r in got), got)
 
-    itos = default_charset()
-    stoi = {s: i for i, s in enumerate(itos)}
     ds = OCRDataset(tsv, imgs, stoi, max_len=25, img_h=64, img_w=256)
     batch = collate_attention([ds[i] for i in range(64)], stoi, 25)
     batch = {k: torch.from_numpy(batch[k]).cuda() for k in ("image", "text_in", "target_y")}
@@ -1366,15 +1455,20 @@ def trba_full_training(torch, k1, tmp: Path) -> int:
     print(f"one epoch under compute_dtype='bfloat16': step losses {[round(v, 4) for v in b_losses]}, "
           f"val loss {bf16['val_loss']:.4f}, {bf16['history'][0]['time_s']:.2f} s")
     check(np.all(np.isfinite(b_losses)) and np.isfinite(bf16["val_loss"]), b_losses)
-    return sum(launches)
+    return sum(launches), sum(bn_launches)
 
 
-def east_full_training(torch, tmp: Path) -> int:
+def east_full_training(torch, tmp: Path) -> tuple:
     """Phase 10: ``EAST.train`` at the trainer's defaults (resnet101, 1024²,
     batch 3, ASAM + SGD, OHEM, focal geometry, multiscale, freeze_first) →
-    the multi-tensor kernels' launches, counted around each run: 5 a step
-    under ASAM, none under RAdam + Lookahead."""
+    (the multi-tensor kernels' launches, K7's), counted around each run:
+    5 and 8 a BatchNorm a step under ASAM (two passes), none and 2 a
+    BatchNorm (its forward) plus 2 a trainable one (its backward) under
+    RAdam + Lookahead, where the frozen BatchNorms' inputs need no gradient."""
     from manuscript_tpu_torch import EAST
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.models.layers import BatchNorm
+    from manuscript_tpu_torch.ops import batch_norm as bn
     from manuscript_tpu_torch.ops import multi_tensor as mt
     from manuscript_tpu_torch.train import east_train
     from manuscript_tpu_torch.utils.synthetic import build_page_dataset
@@ -1385,14 +1479,19 @@ def east_full_training(torch, tmp: Path) -> int:
     print(f"EAST data: 6 training and 3 validation pages (1024×768, 24 words each) with COCO "
           f"labels, written in {time.perf_counter() - t0:.2f} s")
     common = dict(experiment_root=str(tmp / "east"), target_size=1024, batch_size=3)
-    runs, asam_launches = {}, 0
+    with torch.device("meta"):
+        model = EASTModel("resnet101")
+    mask = east_train.freeze_mask(model, True)
+    bns = [name for name, m in model.named_modules() if isinstance(m, BatchNorm)]
+    trainable = sum(mask[f"{name}.weight"] for name in bns)
+    runs, asam_launches, bn_total = {}, 0, 0
     for name, kw in (("GPU-resident (cache_device=True), ASAM + SGD", dict(epochs=2, cache_device=True)),
                      ("streamed, host resize, ASAM + SGD", dict(epochs=1)),
                      ("RAdam + Lookahead + EMA, GPU-resident, 6 steps", dict(
                          epochs=3, cache_device=True, use_sam=False, use_ema=True))):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        mt.kernel_launches = 0
+        mt.kernel_launches = bn.launches = 0
         with timed_steps(torch, east_train) as s:
             out = EAST.train(pages, coco, vpages, vcoco, model_name=f"run{len(runs)}", **common, **kw)
         wall = time.perf_counter() - t0
@@ -1400,13 +1499,18 @@ def east_full_training(torch, tmp: Path) -> int:
         runs[name] = out
         # ASAM: sum of squares and perturbation, restore, sum of squares and
         # update; RAdam + Lookahead runs none of them
-        per_step = 5 if kw.get("use_sam", True) else 0
+        sam = kw.get("use_sam", True)
+        per_step = 5 if sam else 0
+        bn_per_step = 8 * len(bns) if sam else 2 * len(bns) + 2 * trainable
         print(f"EAST.train resnet101 at 1024², {name}: step seconds {[round(x, 4) for x in s]} "
               f"(median after the first {statistics.median(s[1:]):.4f}); wall {wall:.2f} s; peak "
               f"memory {peak:.2f} GiB; multi_tensor launches {mt.kernel_launches} in {len(s)} "
-              f"steps")
+              f"steps; K7 launches {bn.launches} ({len(bns)} train-mode BatchNorms, "
+              f"{trainable} trainable: expected {bn_per_step} a step)")
         check(mt.kernel_launches == per_step * len(s), (mt.kernel_launches, len(s)))
+        check(bn.launches == bn_per_step * len(s), (bn.launches, bn_per_step, len(s)))
         asam_launches += mt.kernel_launches
+        bn_total += bn.launches
         for h in out["history"]:
             print(f"  epoch {h['epoch']}: train loss {h['train_loss']:.4f}, val loss "
                   f"{h['val_loss']:.4f}, soft dice {h['val_dice']:.4f}, {h['time']:.2f} s")
@@ -1416,7 +1520,7 @@ def east_full_training(torch, tmp: Path) -> int:
     page = np.full((1024, 768, 3), 235, np.uint8)
     result = det.predict(page)
     print(f"best.msgpack in EAST(weights_path=...): predict → {len(words_of(result['page']))} boxes")
-    return asam_launches
+    return asam_launches, bn_total
 
 
 # make_quality_ckpt's EAST recipe (RAdam + Lookahead, cosine warm restarts,
@@ -1478,7 +1582,8 @@ def east_epochs_card_vs_cpu(torch, tmp: Path) -> None:
 
 def training(torch, k1) -> tuple:
     """Phase 10 → (the K1 steps of training's validations, the multi-tensor
-    kernels' launches of the full-width EAST runs)."""
+    kernels' launches of the full-width EAST runs, K7's launches of the
+    full-width TRBA and EAST runs)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     micro_train_steps(torch)
@@ -1486,9 +1591,9 @@ def training(torch, k1) -> tuple:
         east_epochs_card_vs_cpu(torch, Path(tmp))
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        launches = trba_full_training(torch, k1, Path(tmp))
-        mt_launches = east_full_training(torch, Path(tmp))
-    return launches, mt_launches
+        launches, trba_bn = trba_full_training(torch, k1, Path(tmp))
+        mt_launches, east_bn = east_full_training(torch, Path(tmp))
+    return launches, mt_launches, trba_bn + east_bn
 
 
 class _RefState:
@@ -2188,7 +2293,8 @@ def kernel_cache(tmp: Path) -> None:
     env = dict(os.environ, MANUSCRIPT_TPU_KERNEL_CACHE=str(cache))
     first = json.loads(subprocess_lines(["-c", _CACHE_LOAD], timeout=600, env=env))
     check(first["cache"] == str(cache)
-          and set(first["seconds"]) == {"attention_step", "quad_iou", "multi_tensor", "lanms"}, first)
+          and set(first["seconds"]) == {"attention_step", "quad_iou", "multi_tensor",
+                                        "batch_norm", "lanms"}, first)
     check(all(Path(lib).parent == cache for lib in first["libs"]), first)
     empty = tmp / "empty"
     empty.mkdir()
@@ -2587,7 +2693,7 @@ EXAMPLE_RUNNER = """
 import json, runpy, sys
 sys.path.insert(0, {root!r})
 from manuscript_tpu_torch.ops import attention_step as k1, lanms_torch as k3, quad_iou as k2
-from manuscript_tpu_torch.ops import multi_tensor as mt
+from manuscript_tpu_torch.ops import batch_norm as bn, multi_tensor as mt
 sys.argv = sys.argv[1:]
 code = 0
 try:
@@ -2596,10 +2702,11 @@ except SystemExit as e:
     code = e.code or 0
 print("LAUNCHES " + json.dumps({{"attention_step": k1.launches, "quad_iou": k2.launches,
                                 "lanms_merge_scan": k3.launches,
-                                "multi_tensor": mt.kernel_launches}}))
+                                "multi_tensor": mt.kernel_launches,
+                                "batch_norm": bn.launches}}))
 sys.exit(code)
 """
-KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan", "multi_tensor")
+KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan", "multi_tensor", "batch_norm")
 
 
 def start_examples(jobs: dict) -> tuple:
@@ -2752,7 +2859,7 @@ def examples_and_notebooks(torch, k1, k2, k3, smi: str) -> dict:
                 "trba_infer": ("attention_step",), "batch_infer": ("attention_step", "quad_iou"),
                 "trba_metrics": ("attention_step",), "decode_sweep": ("attention_step",),
                 "train_at_scale": (), "make_quality_ckpt": ("attention_step",),
-                "nms_bench": ("quad_iou", "lanms_merge_scan"), "kernel_bench": KERNELS,
+                "nms_bench": ("quad_iou", "lanms_merge_scan"), "kernel_bench": KERNELS[:4],
                 "native_stage_probe": ("attention_step", "quad_iou"),
                 "fused_profile": ("attention_step", "quad_iou"), "east_stage_probe": (),
                 "stem_probe": (), "int8_probe": ()}
@@ -2953,6 +3060,7 @@ def main() -> int:
           f"256 boxes): {nms_ops}")
     k3_rows_ = k3_rows(torch, k3, rng, dev)
     mt_rows = multi_tensor_rows(torch, dev)
+    bn_rows = batch_norm_rows(torch, dev)
 
     # ---- 3. full width, random init ----------------------------------------
     phase("3 full width, random weights")
@@ -3056,7 +3164,7 @@ def main() -> int:
     # ---- 10. training ----------------------------------------------------------------
     phase("10 training")
     print(smi)
-    train_launches, mt_launches = training(torch, k1)
+    train_launches, mt_launches, bn_launches = training(torch, k1)
 
     # ---- 11. reference weights, TPS, vis -----------------------------------------------
     phase("11 reference weights, TPS, vis")
@@ -3109,7 +3217,9 @@ def main() -> int:
           f"EAST(nms='device').predict on 3 pages (phase 8), multi_tensor launches of the "
           f"full-width EAST.train runs (phase 10); K1 at R={r_row}, K2 gathered at "
           f"4 × 8191 predecessor pairs, K3 at 8192 candidates, multi_tensor at EAST-R101's "
-          f"leaf set, one ASAM step's perturbation, restore and update together")
+          f"leaf set, one ASAM step's perturbation, restore and update together; "
+          f"batch_norm launches of the full-width TRBA.train and EAST.train runs (phase 10), "
+          f"K7 at a layer3 block's last BatchNorm, forward and backward together")
     mt_ms, mt_plain_ms, mt_bound = (sum(v[i] for v in mt_rows["pieces"].values()) for i in range(3))
     rows = [
         {"name": "attention_step", "route": "cuda",
@@ -3145,6 +3255,20 @@ def main() -> int:
          "pieces": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]}
                     for k, v in mt_rows["pieces"].items()},
          "examples_launches": example_launches["multi_tensor"]},
+        {"name": "batch_norm", "route": "cuda",
+         "source": "manuscript_tpu_torch/csrc/batch_norm.cu",
+         "replaces": "none: flax's train-mode BatchNorm under jax.jit, which XLA fuses "
+                     "(a kernel of the port only)",
+         "launches": bn_launches, "max_abs_err": bn_rows["max_abs_err"],
+         "ms": sum(bn_rows["rows"]["layer3"][k][0] for k in ("forward", "backward")),
+         "plain_ms": sum(bn_rows["rows"]["layer3"][k][1] for k in ("forward", "backward")),
+         "bound_ms": sum(bn_rows["rows"]["layer3"][k][2] for k in ("forward", "backward")),
+         "bound_by": "bytes",
+         "library_ms": sum(bn_rows["rows"]["layer3"][k][4] for k in ("forward", "backward")),
+         "pieces": {f"{shape}.{k}": {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                                     "library_ms": v[4]}
+                    for shape, parts in bn_rows["rows"].items() for k, v in parts.items()},
+         "examples_launches": example_launches["batch_norm"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,8 @@ class DecoderBlock(nn.Module):
         self.bn2 = BatchNorm(cout)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1x1(x)))
-        return F.relu(self.bn2(self.conv3x3(x)))
+        x = self.bn1(self.conv1x1(x), relu=True)
+        return self.bn2(self.conv3x3(x), relu=True)
 
 
 def upsample2x(x):

@@ -10,30 +10,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import batch_norm
 from ..parallel.mesh import sum_over_ranks
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over channel dim 1 with flax ``nn.BatchNorm`` semantics
     (momentum 0.9, epsilon 1e-5); ``weight`` and ``bias`` are parameters,
-    ``running_mean`` and ``running_var`` buffers.
+    ``running_mean`` and ``running_var`` buffers. ``forward(x, residual=None,
+    relu=False)`` returns act(BN(x) + residual): the residual added after the
+    normalization and ReLU last, when asked for.
 
-    In eval mode it normalizes with the running statistics. In train mode it
-    normalizes with the batch mean and the biased batch variance in at least
-    float32, (x − mean)·rsqrt(var + eps)·weight + bias, and differentiates
-    through them. Unless ``update_stats`` is False (SAM's perturbed pass sets
-    it through ``frozen_batch_stats``), the running statistics then move as
-    flax moves them: ``running = 0.9·running + 0.1·batch``. torch's
-    ``F.batch_norm`` would move ``running_var`` by the unbiased variance, so
-    the train path is written here. The variance is the mean of (x − mean)²;
-    flax takes it as E[x²] − E[x]², which cancels in float32 where a channel's
-    mean dwarfs its spread and then moves the gradients by up to several % of
-    a leaf's largest entry (tests/test_torch_train_east.py).
+    In eval mode it normalizes with the running statistics (``F.batch_norm``),
+    then adds the residual and applies the ReLU as ops of their own, the
+    ReLU in place on the tensor just made: the module call holds ``x`` until
+    it returns, so a ReLU of its own output would add a third activation to
+    the peak where the composed call sites held two.
+
+    In train mode it normalizes with the batch mean and the biased batch
+    variance in at least float32, (x − mean)·rsqrt(var + eps)·weight + bias,
+    and differentiates through them. Unless ``update_stats`` is False (SAM's
+    perturbed pass sets it through ``frozen_batch_stats``), the running
+    statistics then move as flax moves them: ``running = 0.9·running +
+    0.1·batch``. torch's ``F.batch_norm`` would move ``running_var`` by the
+    unbiased variance, so the train path is written here: the kernels of
+    ``ops/batch_norm.py`` on a card (statistics, normalization, residual and
+    ReLU in two launches forward and two backward), their plain twin on the
+    CPU. The variance is Welford's or the mean of (x − mean)²; flax takes it
+    as E[x²] − E[x]², which cancels in float32 where a channel's mean dwarfs
+    its spread and then moves the gradients by up to several % of a leaf's
+    largest entry (tests/test_torch_train_east.py).
 
     With a process ``group`` (``sync_batch_stats``; data-parallel training)
     the statistics are those of the global batch, as under the JAX
-    package's GSPMD: two differentiable all-reduces, first of the per-channel
-    sums and the element count, then of the sums of (x − mean)²."""
+    package's GSPMD: composed ops with two differentiable all-reduces, first
+    of the per-channel sums and the element count, then of the sums of
+    (x − mean)²."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -45,25 +57,33 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        if not self.training:
-            return F.batch_norm(
+    def forward(self, x, residual: Optional[torch.Tensor] = None, relu: bool = False):
+        if self.training and self.group is None:
+            return batch_norm(x, residual, self.weight, self.bias, self.running_mean,
+                              self.running_var, self.update_stats, self.momentum, self.eps, relu)
+        if self.training:
+            y = self._global_batch(x)
+        else:
+            y = F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
+        if residual is not None:
+            y = y + residual
+        if not relu:
+            return y
+        return F.relu(y) if self.training else F.relu(y, inplace=True)
+
+    def _global_batch(self, x):
+        """BN(x) with the statistics of the global batch over ``group``."""
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = float32_or_wider(x)
-        if self.group is None:
-            mean = xf.mean(dims)
-            xc = xf - mean.view(shape)
-            var = xc.square().mean(dims)
-        else:
-            count = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
-            sums = sum_over_ranks(torch.cat([xf.sum(dims), count]), self.group)
-            mean = sums[:-1] / sums[-1]
-            xc = xf - mean.view(shape)
-            var = sum_over_ranks(xc.square().sum(dims), self.group) / sums[-1]
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=xf.dtype, device=xf.device)
+        sums = sum_over_ranks(torch.cat([xf.sum(dims), count]), self.group)
+        mean = sums[:-1] / sums[-1]
+        xc = xf - mean.view(shape)
+        var = sum_over_ranks(xc.square().sum(dims), self.group) / sums[-1]
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum

@@ -44,11 +44,11 @@ class Bottleneck(nn.Module):
             self.down_bn = BatchNorm(planes * 4)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
+        out = self.conv3(out)
         identity = self.down_bn(self.down_conv(x)) if self.downsample else x
-        return F.relu(out + identity)
+        return self.bn3(out, residual=identity, relu=True)
 
 
 class ResNetFeatures(nn.Module):
@@ -71,7 +71,7 @@ class ResNetFeatures(nn.Module):
             planes *= 2
 
     def forward(self, x: Tensor) -> Dict[str, Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         feats = {}
         for stage, name in self.names:

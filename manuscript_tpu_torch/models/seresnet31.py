@@ -57,7 +57,7 @@ class SEBasicBlock(nn.Module):
             self.down_bn = BatchNorm(planes)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn1(self.conv1(x), relu=True)
         out = self.se(self.bn2(self.conv2(out)))
         if self.training and self.dropblock_p > 0:
             out = dropout(out, self.dropblock_p, generator, (*out.shape[:2], 1, 1))
@@ -92,13 +92,13 @@ class SEResNet31(nn.Module):
         self.out_bn2 = BatchNorm(out_channels)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        x = F.relu(self.stem_bn1(self.stem_conv1(x)))
-        x = F.relu(self.stem_bn2(self.stem_conv2(x)))
+        x = self.stem_bn1(self.stem_conv1(x), relu=True)
+        x = self.stem_bn2(self.stem_conv2(x), relu=True)
         x = F.max_pool2d(x, 2, 2)
         for name in self.names:
             x = getattr(self, name)(x, generator)
-        x = F.relu(self.out_bn1(self.out_conv1(x)))
-        x = F.relu(self.out_bn2(self.out_conv2(x)))
+        x = self.out_bn1(self.out_conv1(x), relu=True)
+        x = self.out_bn2(self.out_conv2(x), relu=True)
         if x.shape[2] == 0 or x.shape[3] == 0:
             raise ValueError(
                 f"input too small for SEResNet31: feature map {tuple(x.shape)}"

@@ -117,7 +117,7 @@ class LocalizationNetwork(nn.Module):
         # cuDNN picks float32 FFT convolutions with a workspace of many GiB
         x = x.permute(0, 3, 1, 2).contiguous()
         for i in range(len(LOCALIZATION_WIDTHS)):
-            x = F.relu(getattr(self, f"BatchNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
+            x = getattr(self, f"BatchNorm_{i}")(getattr(self, f"Conv_{i}")(x), relu=True)
             x = F.max_pool2d(x, 2, 2)
         x = F.relu(self.Dense_0(x.mean(dim=(2, 3))))
         return self.Dense_1(x).reshape(-1, self.num_fiducials, 2)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"  # the default
 cache_dir = None  # set by utils/compile_cache.enable_compile_cache; wins over BUILD_DIR
-CUDA_SOURCES = ("attention_step", "quad_iou", "multi_tensor")
+CUDA_SOURCES = ("attention_step", "quad_iou", "multi_tensor", "batch_norm")
 HOST_SOURCES = ("lanms",)
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 FLAGS = [

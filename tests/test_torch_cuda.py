@@ -705,3 +705,212 @@ def test_multi_tensor_update_on_the_card_is_in_place_and_refuses_what_it_cannot_
     odd = [torch.zeros(6, 4, device=cuda).t()]
     with pytest.raises(ValueError, match="neither row-major nor channels_last"):
         mt.perturb(odd, [torch.zeros(4, 6, device=cuda)], 0.05, True)
+
+
+# ---- K7: train-mode BatchNorm with residual and ReLU (ops/batch_norm.py) ----
+
+BN_DTYPES = [torch.float32, torch.float64, torch.bfloat16]
+# largest gap against the twin over the larger of 1 and the twin's largest
+# entry: float32 and bfloat16 sum in float32 in another order (and bfloat16
+# rounds its outputs, one ulp 2^-8), float64 in float64
+BN_TOL = {torch.float32: 1e-4, torch.float64: 1e-11, torch.bfloat16: 2e-2}
+# (shape, layout): channels_last and row-major 4-D, 2-D; the micro and
+# decoder plans' ragged channel counts (8, 32), a count off the 4-wide loads
+# (3, 10), fewer rows than a block's tile, and layer4's width on 8 rows
+BN_CASES = [((4, 32, 24, 20), "channels_last"), ((2, 8, 5, 3), "channels_last"),
+            ((3, 3, 7, 5), "channels_last"), ((2, 2048, 2, 2), "channels_last"),
+            ((4, 32, 24, 20), "row_major"), ((2, 8, 5, 3), "row_major"),
+            ((3, 10, 6, 2), "row_major"), ((6, 16), "2d"), ((3, 10), "2d")]
+
+
+def _bn_inputs(dev, shape, lay, dtype, residual, seed=0, offset=0.5):
+    g = torch.Generator().manual_seed(seed)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    fmt = torch.channels_last if lay == "channels_last" else torch.contiguous_format
+    rn = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)  # noqa: E731
+    x = (rn(*shape) * 2 + offset).to(dev, dtype).contiguous(memory_format=fmt)
+    r = rn(*shape).to(dev, dtype).contiguous(memory_format=fmt) if residual else None
+    c = shape[1]
+    w = (torch.rand(c, generator=g, dtype=torch.float64) + 0.5).to(dev, acc)
+    b = (rn(c) * 0.3).to(dev, acc)
+    rm, rv = rn(c).to(dev, acc), (torch.rand(c, generator=g, dtype=torch.float64) + 0.5).to(dev, acc)
+    up = rn(*shape).to(dev, dtype).contiguous(memory_format=fmt)
+    return x, r, w, b, rm, rv, up
+
+
+def _bn_gap(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) / max(1.0, float(b.double().abs().max()))
+
+
+def _bn_bits(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("mode", ["plain", "relu", "residual_relu"])
+@pytest.mark.parametrize("dtype", BN_DTYPES)
+def test_batch_norm_kernel_matches_the_twin(cuda, dtype, mode):
+    """Forward (output, mean and invstd, running statistics) and backward
+    (dx, dr, dweight, dbias given the kernel's forward) against the twin on
+    the card, in 4 launches a call, each output in x's layout."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    residual, relu = mode == "residual_relu", mode != "plain"
+    for i, (shape, lay) in enumerate(BN_CASES):
+        x, r, w, b, rm, rv, up = _bn_inputs(cuda, shape, lay, dtype, residual, seed=i)
+        rm_t, rv_t = rm.clone(), rv.clone()
+        before = bn.launches
+        y, st = bn.forward_cuda(x, r, w, b, rm, rv, True, 0.9, 1e-5, relu)
+        grads = bn.backward_cuda(up, x, y if residual else None, st, w, b, relu, residual)
+        assert bn.launches == before + 4, (shape, lay)
+        y_t, st_t = bn.forward_plain(x, r, w, b, rm_t, rv_t, True, 0.9, 1e-5, relu)
+        want = bn.backward_plain(up, x, y, st, w, relu, residual)
+        assert y.stride() == x.stride() and grads[0].stride() == x.stride()
+        gaps = [_bn_gap(y, y_t), _bn_gap(st, st_t), _bn_gap(rm, rm_t), _bn_gap(rv, rv_t)]
+        gaps += [_bn_gap(a, e) for a, e in zip(grads, want) if e is not None]
+        assert (grads[1] is None) == (not residual)
+        assert max(gaps) <= BN_TOL[dtype], (shape, lay, gaps)
+
+
+@pytest.mark.parametrize("dtype", BN_DTYPES)
+def test_batch_norm_repeats_bit_for_bit_at_the_east_cells_shapes(cuda, dtype):
+    """The EAST cell's stem (786,432 rows × 64) and a layer3 block's last
+    BatchNorm (12,288 × 1024, residual and ReLU), channels_last: two runs
+    equal bit for bit, and within the tolerance of the twin."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    for shape, residual in (((3, 64, 512, 512), False), ((3, 1024, 64, 64), True)):
+        x, r, w, b, rm, rv, up = _bn_inputs(cuda, shape, "channels_last", dtype, residual)
+        runs = []
+        for _ in range(2):
+            y, st = bn.forward_cuda(x, r, w, b, rm, rv, False, 0.9, 1e-5, True)
+            runs.append([y, st, *(t for t in bn.backward_cuda(up, x, y, st, w, b, True, residual)
+                                  if t is not None)])
+        assert all(_bn_bits(a, e) for a, e in zip(*runs)), shape
+        y, st = runs[0][:2]
+        y_t, st_t = bn.forward_plain(x, r, w, b, rm, rv, False, 0.9, 1e-5, True)
+        want = [t for t in bn.backward_plain(up, x, y, st, w, True, residual) if t is not None]
+        gaps = [_bn_gap(y, y_t), _bn_gap(st, st_t)] + [_bn_gap(a, e)
+                                                       for a, e in zip(runs[0][2:], want)]
+        assert max(gaps) <= BN_TOL[dtype], (shape, gaps)
+
+
+@pytest.mark.parametrize("lay", ["channels_last", "row_major"])
+def test_batch_norm_kernel_keeps_the_variance_of_a_channel_far_from_zero(cuda, lay):
+    """Mean 1e4 times the spread in float32: Welford's running variance is
+    within 1e-4 of float64's."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    x, _, w, b, rm, rv, _ = _bn_inputs(cuda, (3, 64, 96, 80), lay, torch.float32, False,
+                                       offset=0.0)
+    x = (x * 0.25 + 1e4).contiguous(memory_format=torch.channels_last if lay == "channels_last"
+                                    else torch.contiguous_format)
+    bn.forward_cuda(x, None, w, b, rm, rv, True, 0.0, 1e-5, False)  # momentum 0: the batch's
+    exact = x.double().var([0, 2, 3], unbiased=False)
+    assert float(((rv.double() - exact).abs() / exact).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("needs", ["x", "residual", "weights"])
+@pytest.mark.parametrize("lay", ["channels_last", "row_major"])
+def test_batch_norm_gradients_when_only_some_inputs_need_them(cuda, lay, needs):
+    """Residual + ReLU through the autograd Function in float64 where only
+    x, only the residual or only weight and bias need a gradient: the
+    kernels mask with y = BN(x) + r <= 0 whichever they are, and each
+    wanted gradient equals the twin's on the CPU."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    x, r, w, b, rm, rv, up = _bn_inputs(cuda, (4, 32, 24, 20), lay, torch.float64, True)
+    flags = {"x": (True, False, False), "residual": (False, True, False),
+             "weights": (False, False, True)}[needs]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [x.to(dev).requires_grad_(flags[0]), r.to(dev).requires_grad_(flags[1]),
+               w.to(dev).requires_grad_(flags[2]), b.to(dev).requires_grad_(flags[2])]
+        y = bn.batch_norm(*ins, rm.to(dev), rv.to(dev), False, 0.9, 1e-5, True)
+        grads[dev.type] = torch.autograd.grad(y, [t for t in ins if t.requires_grad], up.to(dev))
+    gaps = [_bn_gap(a.cpu(), e) for a, e in zip(grads["cuda"], grads["cpu"])]
+    assert max(gaps) <= BN_TOL[torch.float64], gaps
+
+
+def test_batch_norm_on_two_streams_at_once_keeps_each_result(cuda):
+    """The stem's and a layer3 block's BatchNorm forward and backward queued
+    on two streams of one card at once, each behind a sleep so that they
+    overlap: every output equals a run of each alone bit for bit, since each
+    stream keeps its own ticket counters."""
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    cases = [_bn_inputs(cuda, shape, "channels_last", torch.float32, res, seed=i)
+             for i, (shape, res) in enumerate((((3, 64, 256, 256), False),
+                                               ((3, 1024, 64, 64), True)))]
+
+    def run(x, r, w, b, rm, rv, up):
+        y, st = bn.forward_cuda(x, r, w, b, rm, rv, False, 0.9, 1e-5, True)
+        return [y, st, *(t for t in bn.backward_cuda(up, x, y, st, w, b, True, r is not None)
+                         if t is not None)]
+
+    alone = [run(*c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    together = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for s, c in zip(streams, cases):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            together.append([run(*c) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert bn._tickets_of(cuda, streams[0].cuda_stream) != bn._tickets_of(
+        cuda, streams[1].cuda_stream)
+    for want, runs in zip(alone, together):
+        assert all(_bn_bits(a, e) for got in runs for a, e in zip(got, want))
+
+
+def test_batch_norm_kernels_refuse_what_they_do_not_take(cuda):
+    from manuscript_tpu_torch.ops import batch_norm as bn
+
+    v = torch.ones(6, device=cuda)
+    x = torch.randn(2, 6, 4, 4, device=cuda)
+    before = bn.launches
+    with pytest.raises(ValueError, match="neither row-major"):
+        bn.batch_norm(torch.randn(6, 4, device=cuda).t(), None, v, v, v, v, True, 0.9, 1e-5,
+                      False)
+    with pytest.raises(ValueError, match="kernels take"):
+        bn.batch_norm(x.half(), None, v, v, v, v, True, 0.9, 1e-5, False)
+    with pytest.raises(ValueError, match="weight"):
+        bn.batch_norm(x, None, v.double(), v, v, v, True, 0.9, 1e-5, False)
+    with pytest.raises(ValueError, match="residual"):
+        bn.batch_norm(x, x.contiguous(memory_format=torch.channels_last), v, v, v, v, True, 0.9,
+                      1e-5, True)
+    assert bn.launches == before
+
+
+def test_an_east_train_step_runs_every_batch_norm_through_k7(cuda, tmp_path):
+    """A micro EAST ASAM step: each train-mode BatchNorm through the kernels
+    in each of the two passes (4 launches a call, none through the twin),
+    each forward in a ``bn.forward`` span and each backward in a
+    ``bn.backward`` span."""
+    from manuscript_tpu_torch.models.east import EASTModel
+    from manuscript_tpu_torch.models.layers import BatchNorm
+    from manuscript_tpu_torch.ops import batch_norm as bn
+    from manuscript_tpu_torch.train import east_train, optim
+    from manuscript_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    model = EASTModel("resnet50-micro").to(cuda)
+    layers = sum(isinstance(m, BatchNorm) for m in model.modules())
+    mask = east_train.freeze_mask(model, True)
+    trainable = {k: p for k, p in model.named_parameters() if mask[k]}
+    tx, _ = optim.build_east_optimizer(1e-3, 2, use_sam=True)
+    state = east_train.EASTTrainState(model, tx.init(trainable), None)
+    image = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8, device=cuda)
+    score = (torch.rand(2, 16, 16, device=cuda) > 0.7).float()
+    geo = torch.randn(2, 16, 16, 8, device=cuda) * 4
+    east_train.train_step(state, tx, trainable, image, score, geo)  # warm
+    calls, launches = dict(bn.calls), bn.launches
+    with profiling.trace(tmp_path) as prof:
+        east_train.train_step(state, tx, trainable, image, score, geo)
+    assert bn.calls["kernel"] - calls.get("kernel", 0) == 2 * layers
+    assert bn.calls["twin"] == calls.get("twin", 0)
+    assert bn.launches - launches == 8 * layers
+    cpu = torch.autograd.DeviceType.CPU
+    names = [e.name for e in prof.events() if e.device_type == cpu and e.is_user_annotation]
+    assert names.count("bn.forward") == names.count("bn.backward") == 2 * layers
