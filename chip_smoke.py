@@ -349,12 +349,12 @@ def word_sized_boxes(torch, det, page) -> None:
     geometry bias to a word-sized quad (24×8 map px) and the threshold to the
     99.5th percentile of ``page``'s score map, so that phase A emits word
     boxes and phase B recognizes them."""
-    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host, normalize_u8
 
     with torch.no_grad():
         det.model.geo_head.bias.copy_(torch.tensor([-12.0, -4, 12, -4, 12, 4, -12, 4]))
         x = torch.from_numpy(detector_preprocess_host(page, det.target_size)).to(det.device)
-        score = det.model(((x.to(det.dtype) / 255.0 - 0.5) / 0.5)[None])["score"]
+        score = det.model(normalize_u8(x, det.dtype)[None])["score"]
         det.score_thresh = float(torch.quantile(score.flatten().float(), 0.995))
 
 
@@ -374,7 +374,7 @@ def many_pages(torch, det, rec, rng, k1, k2):
     ``process_batch`` call; then the exact checks of one chunk's batched
     phases, the device-crop paths, and one CUDA stream against two."""
     from manuscript_tpu_torch import Pipeline
-    from manuscript_tpu_torch.ops.image import detector_preprocess_host
+    from manuscript_tpu_torch.ops.image import detector_preprocess_host, normalize_u8
 
     pipe = Pipeline(det, rec, beam_size=8, batch_pages=4)
     pages = [synthetic_page(rng) for _ in range(8)]
@@ -428,7 +428,7 @@ def many_pages(torch, det, rec, rng, k1, k2):
     with torch.inference_mode():
         x = torch.from_numpy(np.stack([detector_preprocess_host(p, det.target_size)
                                        for p in pages[:4]])).to(det.device)
-        x = (x.to(det.dtype) / 255.0 - 0.5) / 0.5
+        x = normalize_u8(x, det.dtype)
         s4 = det.model(x)["score"].float()
         s1 = torch.cat([det.model(x[i : i + 1])["score"].float() for i in range(4)])
     flips = int(((s4 > det.score_thresh) != (s1 > det.score_thresh)).sum())
@@ -449,13 +449,14 @@ def chunk_equals_pages(torch, fused, pages, k1, k2) -> None:
     B on the chunk's strip against each page's slots alone, TF32 off (the
     same texts but for ties of equal score, confidences within 1e-4)."""
     from manuscript_tpu_torch.fused import _Pending
+    from manuscript_tpu_torch.ops.image import normalize_u8
 
     det, rec = fused.detector, fused.recognizer
     imgs, host, _, sx, sy, timings = fused._prepare_chunk(pages)
     b = len(pages)
     with torch.inference_mode():
         x = fused._upload(host)
-        out = det.model((x.to(det.dtype) / 255.0 - 0.5) / 0.5)
+        out = det.model(normalize_u8(x, det.dtype))
         score, geo = out["score"][..., 0], out["geometry"]
         sx_d, sy_d = torch.from_numpy(sx).to(x.device), torch.from_numpy(sy).to(x.device)
         k2.launches = 0
@@ -1912,6 +1913,7 @@ def tps_through_k1(torch, k1) -> int:
     """Phase 11c: ``TRBAModel(use_tps=True)`` at full width through K1, and a
     micro one on the card against the CPU → K1 steps of the full-width beam."""
     from manuscript_tpu_torch.models.trba import TRBAModel
+    from manuscript_tpu_torch.ops.image import normalize_u8
     from manuscript_tpu_torch.recognizers import TRBA
     from manuscript_tpu_torch.recognizers.trba import sequence_confidence
     from manuscript_tpu_torch.utils.quality import QUALITY_DIR
@@ -1928,7 +1930,7 @@ def tps_through_k1(torch, k1) -> int:
     strip = np.stack([np.full((64, 256, 3), int(v), np.uint8) for v in rng.integers(150, 256, 256)])
     for i, (x0, w) in enumerate(zip(rng.integers(0, 60, 256), rng.integers(60, 190, 256))):
         strip[i, 18:46, x0 : x0 + w] = rng.integers(0, 90, (28, w, 1), dtype=np.uint8)
-    x = (torch.from_numpy(strip).to(dev).float() / 255.0 - 0.5) / 0.5
+    x = normalize_u8(torch.from_numpy(strip).to(dev), torch.float32)
     with torch.inference_mode():
         tps.beam(x[:16], 25, 8), plain.beam(x[:16], 25, 8)  # warm-up
         torch.cuda.synchronize()

@@ -229,6 +229,7 @@ def main(argv=None):
             k3_sweep(k3, rows, field, device)
 
     # ---- a greedy TRBA decode, its steps through K1 and through the twin ----
+    from manuscript_tpu_torch.ops.image import normalize_u8
     from manuscript_tpu_torch.recognizers import TRBA
 
     tiny = dict(cnn_stage_plan="micro", hidden_size=64, img_h=32, img_w=128, max_length=8)
@@ -249,7 +250,7 @@ def main(argv=None):
     h, e = trba.model.decoder.h2h_kernel.shape[0], trba.model.decoder.i2h_kernel.shape[0]
     v = trba.model.decoder.gen_kernel.shape[1]
     with torch.inference_mode():
-        t_enc = int(trba.model.encode((crops[:1].float() / 127.5 - 1).to(trba.dtype)).shape[1])
+        t_enc = int(trba.model.encode(normalize_u8(crops[:1], trba.dtype)).shape[1])
     step = k1.step_cost(n_crops, n_crops, t_enc, h, e, v)
     emit("trba_greedy_decode", {"crops": n_crops, "steps": steps, "hidden": h, "T": t_enc},
          [got[1]], [want[1]], ms, plain, (steps * step[0], steps * step[1]))

@@ -45,7 +45,7 @@ from ..ops.boxes import (
     to_axis_aligned,
 )
 from ..ops.decode import compact_candidates, compact_topk, decode_cells
-from ..ops.image import detector_preprocess_host, read_image
+from ..ops.image import detector_preprocess_host, normalize_u8, read_image
 from ..ops.lanms import locality_aware_nms
 from ..ops.lanms_torch import locality_aware_nms as device_lanms
 from ..ops.postprocess_torch import postprocess_boxes
@@ -172,7 +172,7 @@ class EAST:
         and geometry (B, h, w, 8), float32. ``model``: a copy of the
         wrapper's model on the pages' device (a mesh's replica), else the
         wrapper's own."""
-        out = (self.model if model is None else model)((pages.to(self.dtype) / 255.0 - 0.5) / 0.5)
+        out = (self.model if model is None else model)(normalize_u8(pages, self.dtype))
         return out["score"][..., 0], out["geometry"]
 
     def candidates(self, score: torch.Tensor, geo: torch.Tensor, score_thresh=None) -> torch.Tensor:

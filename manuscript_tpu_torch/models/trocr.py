@@ -33,9 +33,10 @@ keys together, (B, heads, k, head_dim) against (B, heads, T, head_dim), so
 the cache is held once a line. The beam bookkeeping is ``models/beam.py``,
 shared with TRBA's decoder.
 
-Profiler regions (``utils/profiling.annotate``): ``trocr.encode`` around the
-encoder, ``trocr.decode`` around a decode, and inside it ``trocr.cross_kv``
-and one ``trocr.step`` a step.
+``greedy`` and ``beam`` take normalised images, as ``TRBAModel``'s do, and
+mark their parts as profiler regions (``utils/profiling.annotate``):
+``trocr.encode`` around the encoder, ``trocr.decode`` around the decode,
+and inside it ``trocr.cross_kv`` and one ``trocr.step`` a step.
 """
 
 from __future__ import annotations
@@ -280,9 +281,11 @@ class TrOCRModel(nn.Module):
             h = self._ffn(layer, h)
         return self._logits(h)
 
-    def greedy(self, enc: torch.Tensor, max_len: int = 32):
-        """enc (B, T, E), in the model's dtype → (logits (B, max_len, V),
-        tokens (B, max_len))."""
+    def greedy(self, x: torch.Tensor, max_len: int = 32):
+        """x (B, H, W, C) normalized, in the model's dtype → (logits (B,
+        max_len, V), tokens (B, max_len))."""
+        with annotate("trocr.encode"):
+            enc = self.encode(x)
         with annotate("trocr.decode"):
             b = enc.shape[0]
             cross = self.cross_kv(enc)
@@ -297,10 +300,13 @@ class TrOCRModel(nn.Module):
                 preds.append(tok)
             return torch.stack(all_logits, 1), torch.stack(preds, 1)
 
-    def beam(self, enc: torch.Tensor, max_len: int = 32, beam_size: int = 4, alpha: float = 0.9,
+    def beam(self, x: torch.Tensor, max_len: int = 32, beam_size: int = 4, alpha: float = 0.9,
              temperature: float = 1.0):
-        """Batched beam search → (the chosen beams' temperature-scaled logits
-        (B, max_len, V), tokens (B, max_len)), ``models/beam.py``'s rules."""
+        """Batched beam search over x (B, H, W, C) normalized → (the chosen
+        beams' temperature-scaled logits (B, max_len, V), tokens (B,
+        max_len)), ``models/beam.py``'s rules."""
+        with annotate("trocr.encode"):
+            enc = self.encode(x)
         with annotate("trocr.decode"):
             b, k = enc.shape[0], beam_size
             c = self.config

@@ -338,9 +338,9 @@ def batch_resize_and_pad(images: Sequence[np.ndarray], img_h: int, img_w: int) -
 
 
 def normalize_u8(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 [0, 255] → (x/255 − 0.5)/0.5 in ``dtype``."""
-    x = x.to(dtype) / torch.tensor(255.0, dtype=dtype, device=x.device)
-    return (x - 0.5) / 0.5
+    """uint8 [0, 255] → (x/255 − 0.5)/0.5 in ``dtype``: the recognizers',
+    the detector's and both trainers' input."""
+    return (x.to(dtype) / 255.0 - 0.5) / 0.5
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

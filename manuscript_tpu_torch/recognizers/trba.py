@@ -16,6 +16,8 @@ checkpoint, else from the checkpoint itself; the charset from
 ``charset_path``, else from the checkpoint, else the default one. The CNN
 and BiLSTMs compute in ``dtype``; the decoder stays float32. ``save`` writes
 the trainer's checkpoint layout, and ``TRBA.train`` is the trainer.
+``recognize_tensor``, ``recognize_u8`` and ``predict`` are
+``recognizers/base.Recognizer``'s, with this wrapper's defaults.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,7 +33,6 @@ import torch
 from ..models.trba import TRBAModel
 from ..ops.image import read_image, resize_and_pad, to_rgb_u8
 from ..utils.device import resolve_device
-from ..utils.profiling import annotate
 from ..utils.weights import (
     MissingWeightsError,
     allow_random_init_default,
@@ -43,6 +44,7 @@ from ..utils.weights import (
     params_from_jax,
     params_to_jax,
 )
+from .base import Recognizer, sequence_confidence  # noqa: F401 (re-exported, as the JAX package's module defines it)
 from .charset import (
     BLANK_TOKEN,
     EOS_TOKEN,
@@ -54,28 +56,16 @@ from .charset import (
 )
 
 
-def sequence_confidence(logits: torch.Tensor, preds: torch.Tensor, eos_id: int):
-    """Mean exp(log-softmax at the predicted ids) over each row's steps up to
-    and including its first EOS → (preds, conf (B,))."""
-    log_probs = torch.log_softmax(logits, dim=-1)
-    token_lp = torch.gather(log_probs, -1, preds[..., None])[..., 0]
-    t = preds.shape[1]
-    is_eos = preds == eos_id
-    has_eos = is_eos.any(dim=1)
-    first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
-    upto = torch.where(has_eos, first_eos + 1, torch.full_like(first_eos, t))
-    mask = torch.arange(t, device=preds.device)[None, :] < upto[:, None]
-    conf = (torch.exp(token_lp) * mask).sum(dim=1) / upto.clamp_min(1)
-    return preds, conf
-
-
 def _config_beside(model_path: Union[str, Path]) -> Optional[Path]:
     """``<checkpoint>.json``, else ``config.json`` in its folder, if present."""
     wf = Path(model_path)
     return next((c for c in (wf.with_suffix(".json"), wf.parent / "config.json") if c.exists()), None)
 
 
-class TRBA:
+class TRBA(Recognizer):
+    SPAN = "trba.recognize"
+    BEAM_SIZE, TEMPERATURE, BATCH_SIZE = 8, 1.7, 32
+
     def __init__(
         self,
         model_path: Optional[Union[str, Path]] = None,
@@ -195,47 +185,6 @@ class TRBA:
 
         return _train(*args, **kwargs)
 
-    @torch.inference_mode()
-    def recognize_tensor(
-        self,
-        crops: torch.Tensor,
-        mode: str = "beam",
-        beam_size: int = 8,
-        alpha: float = 0.9,
-        temperature: float = 1.7,
-        model: Optional[TRBAModel] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(N, img_h, img_w, 3) uint8 crops on the model's device → (token ids
-        (N, steps), confidences (N,)) on that device, enqueued on the current
-        stream and not waited for. ``model``: a copy of the wrapper's model
-        on the crops' device (a mesh's replica), else the wrapper's own.
-        Profiler region ``trba.recognize``, around ``trba.encode`` and
-        ``trba.decode``."""
-        if mode not in ("greedy", "beam"):
-            raise ValueError(f"Unknown mode: {mode}")
-        model = self.model if model is None else model
-        with annotate("trba.recognize"):
-            x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
-            if mode == "greedy":
-                logits, preds = model.greedy(x, self.max_length)
-            else:
-                logits, preds = model.beam(x, self.max_length, beam_size, alpha, temperature)
-            return sequence_confidence(logits, preds, self.eos_id)
-
-    def recognize_u8(
-        self,
-        crops: np.ndarray,
-        mode: str = "beam",
-        beam_size: int = 8,
-        alpha: float = 0.9,
-        temperature: float = 1.7,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """(N, img_h, img_w, 3) uint8 crops → (token ids (N, steps),
-        confidences (N,)) as numpy."""
-        x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device)
-        preds, confs = self.recognize_tensor(x, mode, beam_size, alpha, temperature)
-        return preds.cpu().numpy(), confs.cpu().numpy()
-
     def decode(self, ids: Sequence[int]) -> str:
         return decode_tokens(ids, self.itos, self.pad_id, self.eos_id, self.blank_id)
 
@@ -247,29 +196,3 @@ class TRBA:
         else:
             img = to_rgb_u8(np.asarray(read_image(image)))
         return resize_and_pad(img, self.img_h, self.img_w)
-
-    def predict(
-        self,
-        images: Union[Any, List[Any]],
-        batch_size: int = 32,
-        mode: str = "beam",
-        beam_size: int = 8,
-        temperature: float = 1.7,
-        alpha: float = 0.9,
-    ) -> List[Dict[str, Any]]:
-        """Recognize one image or a list (arrays, paths or PIL images) →
-        [{"text", "confidence"}], ``batch_size`` crops per device pass. A
-        short last chunk is not padded: each row's confidence depends on its
-        own steps only."""
-        if mode not in ("beam", "greedy"):
-            raise ValueError(f"Unknown mode: {mode}")
-        images = images if isinstance(images, list) else [images]
-        results: List[Dict[str, Any]] = []
-        for i in range(0, len(images), max(1, batch_size)):
-            batch = np.stack([self._preprocess_one(im) for im in images[i : i + max(1, batch_size)]])
-            preds, confs = self.recognize_u8(batch, mode, beam_size, alpha, temperature)
-            results.extend(
-                {"text": self.decode(p), "confidence": float(np.clip(c, 0.0, 1.0))}
-                for p, c in zip(preds, confs)
-            )
-        return results

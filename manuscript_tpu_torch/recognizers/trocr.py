@@ -1,7 +1,8 @@
 """TrOCR recognizer wrapper: ``microsoft/trocr-base-handwritten``'s
-architecture (``models/trocr.py``) behind the surface of the ``TRBA``
-wrapper, so that ``Pipeline(recognizer=TrOCR(...))`` reads each word or
-line with it on the classic route.
+architecture (``models/trocr.py``) behind the recognizers' shared surface
+(``recognizers/base.Recognizer``, with this wrapper's defaults), so that
+``Pipeline(recognizer=TrOCR(...))`` reads each word or line with it on the
+classic route.
 
 Weights: ``model_path``, a ``torch.save``d state dict named as Hugging
 Face's ``VisionEncoderDecoderModel`` names it (the checkpoint's
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,9 +32,8 @@ import torch
 from ..models.trocr import TrOCRConfig, TrOCRModel
 from ..ops.image import read_image, resize_bilinear, to_rgb_u8
 from ..utils.device import resolve_device
-from ..utils.profiling import annotate
 from ..utils.weights import MissingWeightsError, allow_random_init_default
-from .trba import sequence_confidence
+from .base import Recognizer
 
 SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")  # RoBERTa's ids 0-3
 
@@ -80,7 +80,10 @@ def load_state(model: TrOCRModel, src: Union[str, Path, Mapping[str, torch.Tenso
     model.load_state_dict(state)
 
 
-class TrOCR:
+class TrOCR(Recognizer):
+    SPAN = "trocr.recognize"
+    BEAM_SIZE, TEMPERATURE, BATCH_SIZE = 4, 1.0, 16
+
     def __init__(
         self,
         model_path: Optional[Union[str, Path, Mapping[str, torch.Tensor]]] = None,
@@ -118,48 +121,6 @@ class TrOCR:
         c = self.config
         self.bos_id, self.pad_id, self.eos_id = c.bos_token_id, c.pad_token_id, c.eos_token_id
 
-    @torch.inference_mode()
-    def recognize_tensor(
-        self,
-        crops: torch.Tensor,
-        mode: str = "beam",
-        beam_size: int = 4,
-        alpha: float = 0.9,
-        temperature: float = 1.0,
-        return_logits: bool = False,
-    ) -> Tuple[torch.Tensor, ...]:
-        """(N, image_size, image_size, 3) uint8 lines on the model's device
-        → (token ids (N, max_length), confidences (N,)), and with
-        ``return_logits`` the chosen path's temperature-scaled logits (N,
-        max_length, V), on that device, enqueued on the current stream and
-        not waited for. Profiler region ``trocr.recognize``, around
-        ``trocr.encode`` and ``trocr.decode``."""
-        if mode not in ("greedy", "beam"):
-            raise ValueError(f"Unknown mode: {mode}")
-        with annotate("trocr.recognize"):
-            x = (crops.to(self.dtype) / 255.0 - 0.5) / 0.5
-            with annotate("trocr.encode"):
-                enc = self.model.encode(x)
-            if mode == "greedy":
-                logits, preds = self.model.greedy(enc, self.max_length)
-            else:
-                logits, preds = self.model.beam(enc, self.max_length, beam_size, alpha, temperature)
-            preds, conf = sequence_confidence(logits, preds, self.eos_id)
-            return (preds, conf, logits) if return_logits else (preds, conf)
-
-    def recognize_u8(
-        self,
-        crops: np.ndarray,
-        mode: str = "beam",
-        beam_size: int = 4,
-        alpha: float = 0.9,
-        temperature: float = 1.0,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """(N, image_size, image_size, 3) uint8 lines → (token ids, confidences) as numpy."""
-        x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device)
-        preds, confs = self.recognize_tensor(x, mode, beam_size, alpha, temperature)
-        return preds.cpu().numpy(), confs.cpu().numpy()
-
     def decode(self, ids: Sequence[int]) -> str:
         """Token ids → text through the stand-in table: stop at EOS, skip the
         other special tokens."""
@@ -179,27 +140,3 @@ class TrOCR:
         s = self.config.image_size
         x = resize_bilinear(torch.from_numpy(np.ascontiguousarray(img)).float(), s, s)
         return x.round().clamp(0, 255).to(torch.uint8).numpy()
-
-    def predict(
-        self,
-        images: Union[Any, List[Any]],
-        batch_size: int = 16,
-        mode: str = "beam",
-        beam_size: int = 4,
-        temperature: float = 1.0,
-        alpha: float = 0.9,
-    ) -> List[Dict[str, Any]]:
-        """Recognize one image or a list (arrays, paths or PIL images) →
-        [{"text", "confidence"}], ``batch_size`` lines per device pass."""
-        if mode not in ("beam", "greedy"):
-            raise ValueError(f"Unknown mode: {mode}")
-        images = images if isinstance(images, list) else [images]
-        results: List[Dict[str, Any]] = []
-        for i in range(0, len(images), max(1, batch_size)):
-            batch = np.stack([self._preprocess_one(im) for im in images[i : i + max(1, batch_size)]])
-            preds, confs = self.recognize_u8(batch, mode, beam_size, alpha, temperature)
-            results.extend(
-                {"text": self.decode(p), "confidence": float(np.clip(c, 0.0, 1.0))}
-                for p, c in zip(preds, confs)
-            )
-        return results

@@ -67,7 +67,7 @@ import torch.nn.functional as F
 
 from ..models.east import EASTModel
 from ..models.layers import sync_batch_stats
-from ..ops.image import resize_u8
+from ..ops.image import normalize_u8, resize_u8
 from ..parallel.mesh import (
     DATA_AXIS,
     Mesh,
@@ -90,15 +90,8 @@ from ..utils.weights import (
 from .checkpoints import restore_tree
 from .east_dataset import ConcatDataset, EASTDataset, batch_iterator
 from .losses import east_loss, soft_dice_coefficient
-from .optim import apply_updates, build_east_optimizer, ema_update, gradients, sam_gradient
-from .trba_train import (
-    data_parallel_mesh,
-    guard_finite,
-    normalize,
-    one_rank_per_row,
-    rank_seed,
-    timed,
-)
+from .optim import apply_step, build_east_optimizer, ema_update, gradients, sam_gradient
+from .trba_train import data_parallel_mesh, one_rank_per_row, rank_seed, timed
 
 MULTISCALE_FACTORS = (0.8, 0.9, 1.0, 1.1, 1.2)
 
@@ -272,7 +265,7 @@ def east_train_loss(model: EASTModel, image_u8, gt_score, gt_geo, use_ohem: bool
     global batch whose slice this is), in the model's current mode and its
     parameters' dtype. Profiler region ``east.forward``."""
     with annotate("east.forward"):
-        out = model(normalize(image_u8, next(model.parameters()).dtype))
+        out = model(normalize_u8(image_u8, next(model.parameters()).dtype))
         pred_score, pred_geo = out["score"][..., 0], out["geometry"]
         gh, gw = gt_score.shape[1], gt_score.shape[2]
         if pred_score.shape[1:3] != (gh, gw):  # multiscale: back to the label maps' size
@@ -294,9 +287,9 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
     Profiler regions: ``east.step`` around SAM's ``sam.first_pass`` and
     ``sam.second_pass`` (``east.gradient`` without SAM), then
     ``east.update``; each pass holds an ``east.forward`` (the loss) and an
-    ``optim.backward``. Where ``tx`` has a fused ``step`` (the SAM route's
-    clip → SGD) the update runs through it: on a card the momentum trace
-    and the parameters are updated in place."""
+    ``optim.backward``. The update is ``optim.apply_step``: with the SAM
+    route's fused clip → SGD, on a card the momentum trace and the
+    parameters are updated in place."""
     model = state.model
     model.train()
     loss_fn = lambda: east_train_loss(model, image, score, geo, use_ohem, ohem_ratio,
@@ -313,12 +306,7 @@ def train_step(state: EASTTrainState, tx, trainable: Dict[str, torch.Tensor], im
                 loss = loss_fn()
                 grads = dict(zip(trainable, gradients(loss, list(trainable.values()), group)))
         with annotate("east.update"):
-            if tx.step is not None:  # the fused guard, update and apply (SAM's clip → SGD)
-                state.opt_state = tx.step(loss, grads, state.opt_state, trainable)
-            else:
-                grads = guard_finite(loss, grads)
-                updates, state.opt_state = tx.update(grads, state.opt_state, trainable)
-                apply_updates(trainable, updates)
+            state.opt_state = apply_step(tx, loss, grads, state.opt_state, trainable)
             if state.ema is not None:
                 ema_update(state.ema, dict(model.named_parameters()), ema_decay)
         return loss.detach()
@@ -329,7 +317,7 @@ def eval_step(model: EASTModel, image, score, geo, group=None):
     (B, h, w, 8)) of a validation batch in eval mode; the loss and the dice
     of the global batch with a process ``group``."""
     model.eval()
-    out = model(normalize(image))
+    out = model(normalize_u8(image))
     pred_score = out["score"][..., 0]
     return (east_loss(score, pred_score, geo, out["geometry"], group=group),
             soft_dice_coefficient(score, pred_score, group), pred_score, out["geometry"])

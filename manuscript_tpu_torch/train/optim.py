@@ -25,7 +25,10 @@ Where optax and ``torch.optim`` differ, this module follows optax:
   which is what a freeze means.)
 
 ``sam_gradient`` is SAM/ASAM's two gradient passes, ``lookahead`` a
-terminal transform, ``ema_update`` the parameter average.
+terminal transform, ``ema_update`` the parameter average. ``apply_step``
+is how a transform's result reaches the parameters, in both trainers: the
+transform's fused ``step`` where it has one, else ``composed_step``: the
+non-finite guard, the update and the in-place apply.
 
 The EAST trainer's SAM route has a fused form besides: ``sam_gradient``'s
 perturbation and restore, and ``clip_sgd_step`` (the transform's ``step``,
@@ -58,8 +61,8 @@ Schedule = Callable[[int], float]
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
-    # step(loss, grads, state, params) → state: the non-finite guard, the
-    # update and its application to params in one, where a fused form exists
+    # step(loss, grads, state, params) → state: guard, update and apply in
+    # one, where a fused form exists; ``apply_step`` takes it at scale 1 only
     step: Optional[Callable] = None
 
 
@@ -207,10 +210,31 @@ def guard_finite(loss: torch.Tensor, grads: Tensors) -> Tensors:
 
 
 @torch.no_grad()
-def apply_updates(params: Tensors, updates: Tensors, scale: Optional[float] = None) -> None:
+def apply_updates(params: Tensors, updates: Tensors, scale: float = 1.0) -> None:
     """params += updates (· scale), in place."""
     for k, p in params.items():
-        p.add_(updates[k] if scale is None else updates[k] * scale)
+        p.add_(updates[k] if scale == 1.0 else updates[k] * scale)
+
+
+def composed_step(tx: GradientTransformation, loss: torch.Tensor, grads: Tensors, state,
+                  params: Tensors, scale: float = 1.0):
+    """``guard_finite``, ``tx.update``, then ``params`` += updates · ``scale``
+    (``apply_updates``), leaf by leaf, in place → the new state."""
+    updates, state = tx.update(guard_finite(loss, grads), state, params)
+    apply_updates(params, updates, scale)
+    return state
+
+
+def apply_step(tx: GradientTransformation, loss: torch.Tensor, grads: Tensors, state,
+               params: Tensors, scale: float = 1.0):
+    """Both trainers' optimizer step, in place → the new state: ``tx.step``
+    where it has one (EAST's SAM route), which refuses a ``scale`` other
+    than 1 rather than run composed; else ``composed_step``."""
+    if tx.step is None:
+        return composed_step(tx, loss, grads, state, params, scale)
+    if scale != 1.0:
+        raise ValueError(f"a transform with a fused step takes no scale, got {scale}")
+    return tx.step(loss, grads, state, params)
 
 
 @torch.no_grad()
@@ -318,19 +342,16 @@ def clip_sgd_step(tx: GradientTransformation, max_norm: float, lr: Schedule,
     gradients when ``loss`` is not finite (``guard_finite``), then clips,
     traces, scales by −lr(count) and adds the result to ``params``. On a
     card that is ``ops.multi_tensor.clip_sgd_apply``, two launches with the
-    trace and the parameters updated in place; on the CPU it is
-    ``guard_finite``, ``tx.update`` and ``apply_updates`` themselves. The
-    state keeps the chain's layout: {"0": {}, "1": {"0": {"trace"}, "1":
-    {"count"}}}."""
+    trace and the parameters updated in place; on the CPU ``composed_step``.
+    The state keeps the chain's layout: {"0": {}, "1": {"0": {"trace"},
+    "1": {"count"}}}."""
 
     def step(loss, grads, state, params):
         keys = list(params)
         trace, count = state["1"]["0"]["trace"], state["1"]["1"]["count"]
         p, g, t = ([d[k] for k in keys] for d in (params, grads, trace))
         if not multi_tensor.on_card(p, g, t, loss=loss):
-            updates, state = tx.update(guard_finite(loss, grads), state, params)
-            apply_updates(params, updates)
-            return state
+            return composed_step(tx, loss, grads, state, params)
         multi_tensor.clip_sgd_apply(loss, g, t, p, max_norm, -lr(count), momentum)
         return {"0": {}, "1": {"0": {"trace": trace}, "1": {"count": count + 1}}}
 

@@ -20,10 +20,11 @@ the JAX package's ``TRBA`` load them.
 
 A step: normalize, the teacher-forced forward in train mode (dropout and
 scheduled sampling draw from one ``torch.Generator`` of the device, seeded
-with ``seed``), the loss, the gradients of the trainable parameters, zeroed
-when the loss is not finite (the optimizer still steps: its counts advance),
-the optimizer update, times the plateau scale. Nothing waits for the card
-within an epoch. ``compute_dtype="bfloat16"`` runs the CNN and BiLSTMs under
+with ``seed``), the loss, the gradients of the trainable parameters, then
+``optim.apply_step``: the gradients zeroed when the loss is not finite (the
+optimizer still steps: its counts advance), the update, times the plateau
+scale. Nothing waits for the card within an epoch.
+``compute_dtype="bfloat16"`` runs the CNN and BiLSTMs under
 ``torch.autocast``; the weights, the decoder and the loss stay float32.
 
 By design, unlike the JAX trainer: frozen parameters get no update (optax's
@@ -74,6 +75,7 @@ import torch.distributed as dist
 
 from ..models.layers import float32_or_wider, global_draws, sync_batch_stats
 from ..models.trba import TRBAModel
+from ..ops.image import normalize_u8
 from ..parallel.mesh import (
     DATA_AXIS,
     Mesh,
@@ -110,11 +112,10 @@ from .losses import trba_ce_loss
 from .metrics import aggregate_text_metrics
 from .optim import (
     GradientTransformation,
-    apply_updates,
+    apply_step,
     build_trba_optimizer,
     cosine_decay_schedule,
     gradients,
-    guard_finite,
 )
 from .trba_dataset import AugmentParams, OCRDataset, collate_attention, proportional_batches
 
@@ -295,11 +296,6 @@ def freeze_mask(model: TRBAModel, cfg: Config) -> Dict[str, bool]:
     return {name: decide(name) for name, _ in model.named_parameters()}
 
 
-def normalize(image_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 pixels → (x / 255 − 0.5) / 0.5."""
-    return (image_u8.to(dtype) / 255.0 - 0.5) / 0.5
-
-
 def autocast_for(device: torch.device, compute_dtype: str):
     """``torch.autocast`` to bfloat16 when ``compute_dtype`` asks for it."""
     if compute_dtype == "bfloat16":
@@ -330,20 +326,20 @@ def train_step(
     (the model's BatchNorms synchronised by ``models.layers.
     sync_batch_stats``); dropout and scheduled sampling draw for the global
     batch (``global_draws``). Its three parts are the profiler regions
-    ``trba.forward``, ``trba.backward`` and ``trba.optimizer``."""
+    ``trba.forward``, ``trba.backward`` (the gradients) and
+    ``trba.optimizer`` (``optim.apply_step``)."""
     model.train()
     draws = (nullcontext() if group is None
              else global_draws(dist.get_rank(group), dist.get_world_size(group)))
     with annotate("trba.forward"), draws:
-        x = normalize(batch["image"], next(model.parameters()).dtype)
+        x = normalize_u8(batch["image"], next(model.parameters()).dtype)
         with autocast_for(x.device, compute_dtype):
             logits = model(x, batch["text_in"], ss_prob=ss_prob, generator=generator)
         loss = trba_ce_loss(float32_or_wider(logits), batch["target_y"], pad_id, group)
     with annotate("trba.backward"):
-        grads = guard_finite(loss, dict(zip(params, gradients(loss, list(params.values()), group))))
+        grads = dict(zip(params, gradients(loss, list(params.values()), group)))
     with annotate("trba.optimizer"):
-        updates, opt_state = tx.update(grads, opt_state, params)
-        apply_updates(params, updates, None if lr_scale == 1.0 else lr_scale)
+        opt_state = apply_step(tx, loss, grads, opt_state, params, lr_scale)
     return loss.detach(), opt_state
 
 
@@ -619,7 +615,7 @@ def train(
                     batch = collate_attention(items, stoi, cfg.max_len)
                     padded, n = _pad_batch(batch, val_rows)
                     t = _to_device(padded, dev, mesh)
-                    x = normalize(t["image"])
+                    x = normalize_u8(t["image"])
                     vl.append(trba_ce_loss(model(x, t["text_in"]).float(), t["target_y"], pad_id,
                                            group))
                     # one device decodes the batch's own rows; ranks their

@@ -4,8 +4,9 @@ The plain twins against the loops they replace: SAM/ASAM's perturbation
 and restore as ``optim.sam_gradient`` ran them leaf by leaf, and the
 reference of the guarded clip → SGD → apply (``multi_tensor_twin``)
 against ``guard_finite``, ``chain(clip, sgd)`` and ``apply_updates``; bit
-for bit, in float32, float64 and bfloat16. The whole ASAM train step with
-the fused ``step`` against the same step through ``tx.update``. The chunk
+for bit, in float32, float64 and bfloat16. The whole ASAM train step,
+whose update is ``optim.apply_step``, with the fused ``step`` against the
+same step through ``tx.update``. The chunk
 table the kernels walk (``plan``, ``walk``) and the layouts they gather
 (``strided_offset``, ``_table``). The route: CPU leaves run the plain loops
 and the transforms and open no ``optim.multi_tensor`` region; other devices
@@ -20,7 +21,7 @@ import torch
 from manuscript_tpu_torch.models.east import EASTModel
 from manuscript_tpu_torch.ops import multi_tensor as mt
 from manuscript_tpu_torch.train import east_train, optim
-from manuscript_tpu_torch.train.trba_train import guard_finite
+from manuscript_tpu_torch.train.optim import guard_finite
 from manuscript_tpu_torch.utils import profiling
 from multi_tensor_twin import clip_sgd_apply_twin
 
@@ -193,21 +194,27 @@ def _micro_batch(seed):
 
 
 def test_asam_train_step_fused_equals_the_transforms(tmp_path):
-    """Three ASAM steps of the micro detector through the fused ``step``
-    and through ``tx.update`` + ``apply_updates``: equal parameters, running
-    statistics, traces and counts; the frozen leaves untouched; the state
-    through ``last_state.msgpack`` and back."""
+    """Three ASAM steps of the micro detector, whose update is
+    ``optim.apply_step``: with the fused ``step`` (it runs once a step) and
+    with the same transform without one (``optim.composed_step``: guard,
+    ``tx.update``, ``apply_updates``): equal parameters, running statistics, traces and
+    counts; the frozen leaves untouched; the state through
+    ``last_state.msgpack`` and back."""
     tx, _ = optim.build_east_optimizer(1e-2, 2, use_sam=True)
+    fused_steps = []
+    counted = tx._replace(step=lambda *args: fused_steps.append(1) or tx.step(*args))
+    composed = tx._replace(step=None)
     fused, trainable = _micro_step_state(tx)
-    plain, trainable_p = _micro_step_state(tx._replace(step=None))
+    plain, trainable_p = _micro_step_state(composed)
     start = {k: p.detach().clone() for k, p in fused.model.named_parameters()}
     frozen = [k for k in start if k not in trainable]
     assert frozen and trainable
     for step in range(3):
         batch = _micro_batch(step)
-        loss_f = east_train.train_step(fused, tx, trainable, *batch)
-        loss_p = east_train.train_step(plain, tx._replace(step=None), trainable_p, *batch)
+        loss_f = east_train.train_step(fused, counted, trainable, *batch)
+        loss_p = east_train.train_step(plain, composed, trainable_p, *batch)
         _same_bits([loss_f], [loss_p])
+    assert len(fused_steps) == 3
     _same_bits(list(fused.model.state_dict().values()), list(plain.model.state_dict().values()))
     trace_f, trace_p = fused.opt_state["1"]["0"]["trace"], plain.opt_state["1"]["0"]["trace"]
     assert trace_f.keys() == trace_p.keys() == trainable.keys()

@@ -176,3 +176,34 @@ def test_a_trocr_call_nests_encode_decode_cross_kv_and_a_step_a_token(tmp_path):
     assert len(_inside(regions, "trocr.cross_kv", decode)) == 1
     assert len(_inside(regions, "trocr.step", decode)) == rec.max_length == 4
     assert len([r for r in regions if r[0].startswith("trocr.")]) == 1 + 1 + 1 + 1 + 4
+
+
+def _small_recognizer(name):
+    from manuscript_tpu_torch.models.trocr import TrOCRConfig
+    from manuscript_tpu_torch.recognizers import TrOCR
+
+    if name == "trba":
+        rec = TRBA(device="cpu", allow_random_init=True, max_length=3, hidden_size=16,
+                   img_h=32, img_w=64, cnn_stage_plan="micro")
+        return rec, torch.zeros(2, 32, 64, 3)
+    config = TrOCRConfig(image_size=32, patch_size=8, enc_hidden=32, enc_layers=1, enc_heads=4,
+                         enc_mlp=64, d_model=32, dec_layers=1, dec_heads=4, dec_ffn=64, vocab_size=50,
+                         max_position_embeddings=16)
+    return TrOCR(device="cpu", allow_random_init=True, max_length=3, config=config), torch.zeros(2, 32, 32, 3)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+@pytest.mark.parametrize("name", ["trba", "trocr"])
+def test_a_recognizer_models_greedy_and_beam_take_images_and_run_encode_then_decode(
+        tmp_path, name, mode):
+    """The models' one contract: ``greedy(x, max_len)`` and ``beam(x,
+    max_len, k, α, T)`` on normalised images, each an ``<name>.encode``
+    span, then an ``<name>.decode`` span, with no wrapper around them."""
+    rec, x = _small_recognizer(name)
+    with torch.inference_mode(), profiling.trace(tmp_path) as prof:
+        args = (x, 3) if mode == "greedy" else (x, 3, 2, 0.9, 1.0)
+        logits, tokens = getattr(rec.model, mode)(*args)
+    assert tokens.shape[0] == logits.shape[0] == 2  # TRBA's greedy runs max_len + 1 steps
+    regions = [r for r in _regions(prof) if r[0] in (f"{name}.encode", f"{name}.decode")]
+    assert [r[0] for r in regions] == [f"{name}.encode", f"{name}.decode"]
+    assert regions[0][2] <= regions[1][1]

@@ -118,6 +118,46 @@ def test_build_east_optimizer(use_sam):
         assert psched(step) == pytest.approx(float(jsched(step)), rel=1e-7)
 
 
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_apply_step_runs_the_fused_step_and_refuses_a_scale_for_it(monkeypatch, scale):
+    """``apply_step`` on a transform with a fused ``step`` (EAST's SAM route)
+    runs that step at scale 1; at any other scale it raises and leaves the
+    parameters and the state alone, and the composed update does not run in
+    the fused step's place."""
+    tx, _ = P.build_east_optimizer(1e-2, 2, use_sam=True)
+    fused, composed = [], []
+    counted = tx._replace(step=lambda *args: fused.append(1) or tx.step(*args))
+    real = P.composed_step
+    monkeypatch.setattr(P, "composed_step", lambda *a, **k: composed.append(1) or real(*a, **k))
+    params = {k: torch.from_numpy(v) for k, v in _params().items()}
+    start = {k: v.clone() for k, v in params.items()}
+    grads = {k: torch.from_numpy(v) for k, v in _grads()[0].items()}
+    state = counted.init(params)
+    if scale == 1.0:
+        state = P.apply_step(counted, torch.tensor(1.0), grads, state, params, scale)
+        assert fused == [1] and state["1"]["1"]["count"] == 1
+        assert all(not torch.equal(params[k], start[k]) for k in params)
+        return
+    with pytest.raises(ValueError, match="fused step"):
+        P.apply_step(counted, torch.tensor(1.0), grads, state, params, scale)
+    assert fused == [] and composed == [] and state["1"]["1"]["count"] == 0
+    assert all(torch.equal(params[k], start[k]) for k in params)
+
+
+def test_apply_step_without_a_fused_step_scales_the_composed_update():
+    """Without a ``step``: params += ``tx.update``'s result · scale, and no
+    update at all when the loss is not finite."""
+    tx = P.sgd(0.1, 0.0)
+    params = {k: torch.from_numpy(v) for k, v in _params().items()}
+    start = {k: v.clone() for k, v in params.items()}
+    grads = {k: torch.from_numpy(v) for k, v in _grads()[0].items()}
+    state = P.apply_step(tx, torch.tensor(float("nan")), grads, tx.init(params), params, 0.5)
+    assert all(torch.equal(params[k], start[k]) for k in params)
+    P.apply_step(tx, torch.tensor(1.0), grads, state, params, 0.5)
+    for k in params:
+        assert torch.equal(params[k], start[k] + (-0.1 * grads[k]) * 0.5)
+
+
 def test_lookahead_syncs_like_the_jax_transform():
     params, grads = _params(), _grads()
     jtx = optax.chain(optax.sgd(0.05), J.lookahead(k=3, alpha=0.5))

@@ -17,7 +17,7 @@ import torch
 
 from manuscript_tpu_torch import Pipeline
 from manuscript_tpu_torch.models.trocr import TrOCRConfig, TrOCRModel
-from manuscript_tpu_torch.recognizers import TrOCR
+from manuscript_tpu_torch.recognizers import TRBA, TrOCR
 from manuscript_tpu_torch.recognizers.trocr import stand_in_vocab
 from manuscript_tpu_torch.types import Block, Page, Word
 from manuscript_tpu_torch.utils.quality import load_quality_models as port_models
@@ -181,3 +181,52 @@ def test_a_checkpoint_by_hugging_faces_names_loads_and_none_without_random_init_
     assert all(torch.equal(given.model.state_dict()[k], v) for k, v in weights.items())
     with pytest.raises(ValueError, match="no checkpoint"):
         TrOCR(device="cpu", allow_random_init=False, config=rec.config)
+
+
+class _SpyModel:
+    """A recognizer model that records the arguments of its decodes."""
+
+    def __init__(self, vocab, eos_id):
+        self.vocab, self.eos_id, self.calls = vocab, eos_id, []
+
+    def _out(self, x, max_len):
+        tokens = torch.full((x.shape[0], max_len), self.eos_id)
+        return torch.zeros(x.shape[0], max_len, self.vocab), tokens
+
+    def greedy(self, x, max_len):
+        self.calls.append(("greedy", x.shape[0], max_len))
+        return self._out(x, max_len)
+
+    def beam(self, x, max_len, k, alpha, temperature):
+        self.calls.append(("beam", x.shape[0], max_len, k, alpha, temperature))
+        assert x.dtype == torch.float32 and -1.0 <= float(x.min()) <= float(x.max()) <= 1.0
+        return self._out(x, max_len)
+
+
+@pytest.mark.parametrize("name,defaults", [("trba", (8, 0.9, 1.7, 32)), ("trocr", (4, 0.9, 1.0, 16))])
+def test_the_shared_surface_keeps_each_wrappers_defaults_and_calls_recognize_tensor(
+        name, defaults, monkeypatch):
+    """``predict`` with no decode arguments runs the wrapper's own beam, α,
+    T and chunk size; every chunk goes through the class's
+    ``recognize_tensor`` attribute (the benchmark's faults patch it there),
+    and patching one wrapper's leaves the other's alone."""
+    if name == "trba":
+        rec = TRBA(device="cpu", allow_random_init=True, max_length=3, hidden_size=16,
+                   img_h=32, img_w=64, cnn_stage_plan="micro")
+        vocab, other = len(rec.itos), TrOCR
+    else:
+        rec = TrOCR(device="cpu", allow_random_init=True, max_length=3, config=TrOCRConfig.from_hf(HF))
+        vocab, other = rec.config.vocab_size, TRBA
+    k, alpha, temperature, batch = defaults
+    assert (rec.BEAM_SIZE, rec.ALPHA, rec.TEMPERATURE, rec.BATCH_SIZE) == defaults
+    rec.model = _SpyModel(vocab, rec.eos_id)
+    chunks, inner = [], type(rec).recognize_tensor
+    monkeypatch.setattr(type(rec), "recognize_tensor",
+                        lambda self, crops, *args: chunks.append(crops.shape[0]) or inner(self, crops, *args))
+    images = [np.full((20, 40, 3), 200, dtype=np.uint8)] * (batch + 1)
+    out = rec.predict(images)
+    assert len(out) == batch + 1 and chunks == [batch, 1]
+    assert rec.model.calls == [("beam", batch, 3, k, alpha, temperature), ("beam", 1, 3, k, alpha, temperature)]
+    assert other.recognize_tensor is not type(rec).recognize_tensor
+    rec.recognize_u8(np.stack([rec._preprocess_one(images[0])]), "greedy")
+    assert rec.model.calls[-1] == ("greedy", 1, 3) and chunks[-1] == 1

@@ -37,7 +37,7 @@ from manuscript_tpu.utils.quality import QUALITY_DIR, load_quality_models
 from manuscript_tpu.utils.synthetic import render_page
 from manuscript_tpu_torch import Pipeline
 from manuscript_tpu_torch.detectors import EAST
-from manuscript_tpu_torch.ops.image import decode_png, encode_png
+from manuscript_tpu_torch.ops.image import decode_png, encode_png, normalize_u8
 from manuscript_tpu_torch.train.east_dataset import fill_poly
 from manuscript_tpu_torch.types import Block, Page, Word
 from manuscript_tpu_torch.utils import visualize as PV
@@ -283,7 +283,6 @@ def test_east_trainer_logs_the_jax_packages_collage(tmp_path, monkeypatch, cache
     trainer builds it (``create_collage``; within 1 grey level)."""
     import torch.utils.tensorboard as tb
 
-    from manuscript_tpu_torch.train import east_train
     from manuscript_tpu_torch.train.east_dataset import EASTDataset
     from manuscript_tpu_torch.utils.synthetic import build_page_dataset
 
@@ -312,7 +311,7 @@ def test_east_trainer_logs_the_jax_packages_collage(tmp_path, monkeypatch, cache
     im0, sc0, geo0, quads0 = EASTDataset(img_dir, coco, target_size=64, augment=False)[0]
     model = out["model"].eval()
     with torch.no_grad():
-        pred = model(east_train.normalize(torch.from_numpy(im0)[None]))
+        pred = model(normalize_u8(torch.from_numpy(im0)[None]))
     ref = JV.create_collage(im0, sc0, geo0, gt_quads=quads0, pred_score=pred["score"][0, ..., 0].numpy(),
                             pred_geo=pred["geometry"][0].numpy())
     assert_close_images(images[0][1], ref)
