@@ -374,6 +374,7 @@ def many_pages(torch, det, rec, rng, k1, k2):
     ``process_batch`` call; then the exact checks of one chunk's batched
     phases, the device-crop paths, and one CUDA stream against two."""
     from manuscript_tpu_torch import Pipeline
+    from manuscript_tpu_torch.ops import beam_select as bs
     from manuscript_tpu_torch.ops.image import detector_preprocess_host, normalize_u8
 
     pipe = Pipeline(det, rec, beam_size=8, batch_pages=4)
@@ -382,12 +383,13 @@ def many_pages(torch, det, rec, rng, k1, k2):
     pipe.predict(pages[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k1.kernel_launches = k2.launches = 0
+    k1.launches = k1.kernel_launches = k2.launches = bs.launches = 0
     t0 = time.perf_counter()
     batch = pipe.process_batch(pages)
     torch.cuda.synchronize()
     t_batch = time.perf_counter() - t0
-    launches = {"attention_step": k1.launches, "quad_iou": k2.launches}
+    launches = {"attention_step": k1.launches, "quad_iou": k2.launches,
+                "beam_select": bs.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     chunks = [dict(c) for c in pipe._fused.chunk_timings]
     t0 = time.perf_counter()
@@ -408,6 +410,7 @@ def many_pages(torch, det, rec, rng, k1, k2):
     # one 25-step beam decode per chunk, both NMS calls of each chunk's phase A
     check(launches["attention_step"] == 25 * len(chunks), launches)
     check(launches["quad_iou"] >= 2 * len(chunks), launches)
+    check(launches["beam_select"] == 25 * len(chunks), launches)  # one K8 launch a beam step
     words = [words_of(p) for p in batch]
     ref = [words_of(p) for p in loop]
     for ws in words:
@@ -907,6 +910,60 @@ def batch_norm_rows(torch, dev) -> dict:
         print(f"K7 batch_norm {name}: two runs bit-equal; against the twin {gap:.3e}")
         del x, r, g, y, st, runs, want
     return {"rows": rows, "max_abs_err": err}
+
+
+def beam_select_rows(torch, dev) -> dict:
+    """Phase 2, K8 (``ops.beam_select``, the beam's advance) at both cells'
+    shapes: TrOCR's 128 lines × 4 beams × 50,265 tokens (512 rows, T 1.0)
+    and TRBA's 512 × 8 × 194 (4,096 rows, T 1.7), at step 3 with α 0.9,
+    a third of the beams finished. Against the plain version, which is the
+    composed advance with its stable sort that K8 replaced: parents, tokens
+    and finished flags equal on the lines whose k + 1 best scores lie more
+    than 1e-4 apart (or exactly together), scores within 2e-6 relative; two
+    runs bit-equal; each timed (``graph_time_ms``) beside its bound
+    (``beam_select.cost``) and the plain version → {name: (ms, plain ms,
+    bound ms, bound by, launches a call)}."""
+    from manuscript_tpu_torch.models.beam import length_scale
+    from manuscript_tpu_torch.ops import beam_select as bs
+    from manuscript_tpu_torch.utils.profiling import bound_ms, graph_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows_out = {}
+    for name, (b, k, v, eos, temperature) in {"trocr": (128, 4, 50265, 2, 1.0),
+                                              "trba": (512, 8, 194, 1, 1.7)}.items():
+        logits = torch.randn(b * k, v, device=dev, generator=gen) * 3
+        scores = -torch.rand(b, k, device=dev, generator=gen) * 20
+        finished = torch.rand(b, k, device=dev, generator=gen) < 0.3
+        rows = torch.arange(b, device=dev)[:, None]
+        lp = length_scale(3, 0.9)
+        args = (logits, scores, finished, rows, eos, temperature, lp)
+        before = bs.launches
+        got, again = bs.beam_select(*args), bs.beam_select(*args)
+        torch.cuda.synchronize()
+        per_call = (bs.launches - before) // 2
+        check(all(torch.equal(a, e) for a, e in zip(got, again)), f"K8 {name}: two runs differ")
+        want = bs.select_plain(*args)
+        top, _ = bs.topk_lowest_index(
+            bs.next_scores_plain(logits, scores, finished, eos, temperature, lp), k + 1)
+        gaps = top[:, :-1] - top[:, 1:]
+        sep = ((gaps > 1e-4) | (gaps == 0)).all(1)
+        same = all(torch.equal(a[sep], e[sep]) for a, e in zip(got[:2] + got[3:],
+                                                                 want[:2] + want[3:]))
+        rel = float(((got[2][sep] - want[2][sep]).abs() / want[2][sep].abs()).max())
+        print(f"K8 beam_select {name} ({b} lines × {k} beams × {v} tokens): {per_call} launches "
+              f"a call; against the plain version on {int(sep.sum())} of {b} separated lines: "
+              f"ids and flags {'equal' if same else 'DIFFER'}, scores within {rel:.3e} relative; "
+              f"two runs bit-equal")
+        check(same and rel <= 2e-6 and int(sep.sum()) >= 0.9 * b, (name, same, rel))
+        ops, nbytes = bs.cost(b, k, v)
+        rows_out[name] = (graph_time_ms(lambda: bs.beam_select(*args)),
+                          graph_time_ms(lambda: bs.select_plain(*args), calls=2, replays=3),
+                          *bound_ms(nbytes, ops), per_call)
+        ms, plain_ms, b_ms, by, _ = rows_out[name]
+        print(f"K8 beam_select {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
+              f"({by}; {100 * b_ms / ms:.1f} % of it); library_ms none (no one PyTorch call)")
+        del logits, top, got, again, want
+    return rows_out
 
 
 def first_pass_cost(torch, rec) -> None:
@@ -2291,12 +2348,12 @@ def kernel_cache(tmp: Path) -> None:
     """Phase 12: every source built into ``MANUSCRIPT_TPU_KERNEL_CACHE`` by
     one process; a second, with no nvcc and no host compiler to be found,
     builds nothing and loads the cached libraries."""
+    from manuscript_tpu_torch.ops import _build
+
     cache = tmp / "kernel_cache"
     env = dict(os.environ, MANUSCRIPT_TPU_KERNEL_CACHE=str(cache))
     first = json.loads(subprocess_lines(["-c", _CACHE_LOAD], timeout=600, env=env))
-    check(first["cache"] == str(cache)
-          and set(first["seconds"]) == {"attention_step", "quad_iou", "multi_tensor",
-                                        "batch_norm", "lanms"}, first)
+    check(first["cache"] == str(cache) and set(first["seconds"]) == set(_build.SOURCES), first)
     check(all(Path(lib).parent == cache for lib in first["libs"]), first)
     empty = tmp / "empty"
     empty.mkdir()
@@ -2695,7 +2752,7 @@ EXAMPLE_RUNNER = """
 import json, runpy, sys
 sys.path.insert(0, {root!r})
 from manuscript_tpu_torch.ops import attention_step as k1, lanms_torch as k3, quad_iou as k2
-from manuscript_tpu_torch.ops import batch_norm as bn, multi_tensor as mt
+from manuscript_tpu_torch.ops import batch_norm as bn, beam_select as bs, multi_tensor as mt
 sys.argv = sys.argv[1:]
 code = 0
 try:
@@ -2705,10 +2762,12 @@ except SystemExit as e:
 print("LAUNCHES " + json.dumps({{"attention_step": k1.launches, "quad_iou": k2.launches,
                                 "lanms_merge_scan": k3.launches,
                                 "multi_tensor": mt.kernel_launches,
-                                "batch_norm": bn.launches}}))
+                                "batch_norm": bn.launches,
+                                "beam_select": bs.launches}}))
 sys.exit(code)
 """
-KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan", "multi_tensor", "batch_norm")
+KERNELS = ("attention_step", "quad_iou", "lanms_merge_scan", "multi_tensor", "batch_norm",
+           "beam_select")
 
 
 def start_examples(jobs: dict) -> tuple:
@@ -3063,6 +3122,7 @@ def main() -> int:
     k3_rows_ = k3_rows(torch, k3, rng, dev)
     mt_rows = multi_tensor_rows(torch, dev)
     bn_rows = batch_norm_rows(torch, dev)
+    bs_rows = beam_select_rows(torch, dev)
 
     # ---- 3. full width, random init ----------------------------------------
     phase("3 full width, random weights")
@@ -3271,6 +3331,16 @@ def main() -> int:
                                      "library_ms": v[4]}
                     for shape, parts in bn_rows["rows"].items() for k, v in parts.items()},
          "examples_launches": example_launches["batch_norm"]},
+        {"name": "beam_select", "route": "cuda",
+         "source": "manuscript_tpu_torch/csrc/beam_select.cu",
+         "replaces": "none: the beam's jax.lax.top_k and log-softmax under XLA (a kernel of "
+                     "the port only)",
+         "launches": batch_launches["beam_select"], "max_abs_err": None,
+         "ms": bs_rows["trocr"][0], "plain_ms": bs_rows["trocr"][1],
+         "bound_ms": bs_rows["trocr"][2], "bound_by": bs_rows["trocr"][3], "library_ms": None,
+         "pieces": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "launches": v[4]}
+                    for k, v in bs_rows.items()},
+         "examples_launches": example_launches["beam_select"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

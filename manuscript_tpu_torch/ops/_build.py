@@ -26,15 +26,16 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"  # the default
 cache_dir = None  # set by utils/compile_cache.enable_compile_cache; wins over BUILD_DIR
-CUDA_SOURCES = ("attention_step", "quad_iou", "multi_tensor", "batch_norm")
+CUDA_SOURCES = ("attention_step", "quad_iou", "multi_tensor", "batch_norm", "beam_select")
 HOST_SOURCES = ("lanms",)
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-# per-source extra flags (quad_iou.cu and multi_tensor.cu explain their -fmad=false)
-EXTRA_FLAGS = {"quad_iou": ["-fmad=false"], "multi_tensor": ["-fmad=false"]}
+# per-source extra flags (quad_iou.cu, multi_tensor.cu and beam_select.cu explain their -fmad=false)
+EXTRA_FLAGS = {"quad_iou": ["-fmad=false"], "multi_tensor": ["-fmad=false"],
+               "beam_select": ["-fmad=false"]}
 # the JAX package's native/Makefile flags; no -march=native (lanms.cpp says why)
 HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 

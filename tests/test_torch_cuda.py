@@ -914,3 +914,163 @@ def test_an_east_train_step_runs_every_batch_norm_through_k7(cuda, tmp_path):
     cpu = torch.autograd.DeviceType.CPU
     names = [e.name for e in prof.events() if e.device_type == cpu and e.is_user_annotation]
     assert names.count("bn.forward") == names.count("bn.backward") == 2 * layers
+
+
+# ---- K8: the beam's advance (ops/beam_select.py) ----
+
+# (B, k, V): TrOCR's line (one and the cell's 128), TRBA's cell (512 × 8 ×
+# 194) and a few of its lines; the first two take two launches, the rest one
+BS_CASES = [(1, 4, 50265), (128, 4, 50265), (512, 8, 194), (3, 8, 194)]
+BS_EOS = 2  # both configurations' EOS lies low in the vocabulary
+
+
+def _bs_state(dev, b, k, v, seed, integer=False):
+    """Logits (B·k, V), scores (B, k) and finished (B, k): about a third of
+    the beams finished and line 0 wholly; ``integer`` logits (a few values
+    each repeated many times in a row) and beam k//2 a copy of beam 0, row
+    and score, so that exact ties are everywhere."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(b * k, v, generator=g) * 3
+    scores = -torch.rand(b, k, generator=g) * 5
+    if integer:
+        logits = logits.round().reshape(b, k, v)
+        logits[:, k // 2] = logits[:, 0]
+        logits = logits.reshape(b * k, v)
+        scores[:, k // 2] = scores[:, 0]
+    finished = torch.rand(b, k, generator=g) < 0.3
+    finished[0] = True
+    return logits.to(dev), scores.to(dev), finished.to(dev)
+
+
+def _bs_separated(logits, scores, finished, eos, temperature, lp, k):
+    """(B,) whether each line's k + 1 best composed scores lie more than
+    1e-4 apart, or exactly together: lines where a float32 rounding cannot
+    swap the kept beams between two ways of computing them."""
+    from manuscript_tpu_torch.ops import beam_select as bs
+
+    x = bs.next_scores_plain(logits, scores, finished, eos, temperature, lp)
+    top, _ = bs.topk_lowest_index(x, k + 1)
+    gaps = top[:, :-1] - top[:, 1:]
+    return ((gaps > 1e-4) | (gaps == 0)).all(1)
+
+
+def _bs_launches(b, k, v):
+    from manuscript_tpu_torch.ops import beam_select as bs
+
+    return 1 + bs.plan(b, k, v, torch.cuda.get_device_properties(0).multi_processor_count).two
+
+
+@pytest.mark.parametrize("temperature", [1.0, 1.7])
+@pytest.mark.parametrize("alpha", [0.0, 0.9])
+@pytest.mark.parametrize("b, k, v", BS_CASES)
+def test_beam_select_kernel_matches_the_plain_version(cuda, b, k, v, alpha, temperature):
+    """K8 against the plain version on the card: parents, tokens and
+    finished flags equal on every line whose kept beams are separated,
+    scores within 2e-6 relative, finished beams continuing only with EOS,
+    two runs bit-equal, one or two launches a call."""
+    from manuscript_tpu_torch.models.beam import length_scale
+    from manuscript_tpu_torch.ops import beam_select as bs
+
+    logits, scores, finished = _bs_state(cuda, b, k, v, seed=b + k)
+    rows = torch.arange(b, device=cuda)[:, None]
+    lp = length_scale(3, alpha) if alpha > 0 else None
+    before = bs.launches
+    got = bs.beam_select(logits, scores, finished, rows, BS_EOS, temperature, lp)
+    again = bs.beam_select(logits, scores, finished, rows, BS_EOS, temperature, lp)
+    torch.cuda.synchronize()
+    assert bs.launches - before == 2 * _bs_launches(b, k, v)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+    want = bs.select_plain(logits, scores, finished, rows, BS_EOS, temperature, lp)
+    sep = _bs_separated(logits, scores, finished, BS_EOS, temperature, lp, k)
+    assert int(sep.sum()) >= max(1, int(0.9 * b)), "too few lines to compare"
+    for a, e in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert a.dtype == e.dtype and a.shape == (b, k)
+        assert torch.equal(a[sep], e[sep])
+    s, w = got[2][sep], want[2][sep]
+    assert float(((s - w).abs() / w.abs().clamp_min(1e-30)).max()) <= 2e-6
+    parent, tok, _, fin = got
+    assert bool((tok[0] == BS_EOS).all()) and bool(fin[0].all())  # line 0 had finished
+    assert not bool((finished.gather(1, parent) & (tok != BS_EOS)).any())
+    assert bool((fin == (finished.gather(1, parent) | (tok == BS_EOS))).all())
+
+
+@pytest.mark.parametrize("b, k, v", BS_CASES)
+def test_beam_select_kernel_resolves_exact_ties_to_the_lowest_flat_index(cuda, b, k, v):
+    """Integer logits, each value many times in a row, and a beam that
+    copies beam 0 (row and score): the kept beams are exactly those of the
+    plain version on the CPU, whose log-softmax gives equal rows equal
+    values (the card's composed ops need not, by the rows' alignment),
+    their scores within 2e-6 of the plain version's on the card, and among
+    equal scores the flat index rises."""
+    from manuscript_tpu_torch.ops import beam_select as bs
+
+    logits, scores, finished = _bs_state(cuda, b, k, v, seed=7 * b + k, integer=True)
+    finished[1:] = False
+    rows = torch.arange(b, device=cuda)[:, None]
+    got = bs.beam_select(logits, scores, finished, rows, BS_EOS, 1.0, None)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (logits, scores, finished, rows)]
+    want = bs.select_plain(*cpu, BS_EOS, 1.0, None)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    on_card = bs.select_plain(logits, scores, finished, rows, BS_EOS, 1.0, None)
+    torch.testing.assert_close(got[2], on_card[2], rtol=2e-6, atol=0)
+    flat, top = got[0] * v + got[1], got[2]
+    same = top[:, 1:] == top[:, :-1]
+    assert bool(same.any()), "no tie was planted among the kept beams"
+    assert bool((flat[:, 1:] > flat[:, :-1])[same].all())  # among equal scores, rising index
+
+
+def test_beam_select_refuses_what_it_does_not_take(cuda):
+    from manuscript_tpu_torch.ops import beam_select as bs
+
+    logits, scores, finished = _bs_state(cuda, 2, 4, 30, seed=1)
+    rows = torch.arange(2, device=cuda)[:, None]
+    before = bs.launches
+    cases = [
+        ((logits.double(), scores, finished), "float32 matrix"),
+        ((logits.t().contiguous().t(), scores, finished), "float32 matrix"),
+        ((logits.reshape(2, 4, 30), scores, finished), "float32 matrix"),
+        ((logits, scores.double(), finished), "scores must be"),
+        ((logits, scores, finished.int()), "finished must be"),
+        ((logits, scores, finished.cpu()), "finished must be"),
+        ((logits[:6], scores, finished), "logits of shape"),
+    ]
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            bs.beam_select(*args, rows, BS_EOS, 1.0, None)
+    with pytest.raises(ValueError, match="beams a line"):
+        bs.beam_select(torch.zeros(34, 30, device=cuda), torch.zeros(2, 17, device=cuda),
+                       torch.zeros(2, 17, dtype=torch.bool, device=cuda), rows, 0, 1.0, None)
+    with pytest.raises(ValueError, match="EOS"):
+        bs.beam_select(logits, scores, finished, rows, 30, 1.0, None)
+    assert bs.launches == before
+
+
+def test_the_recognizers_beams_take_k8_at_every_step(cuda):
+    """TRBA's and TrOCR's beams on the card at small widths: one K8 call a
+    step, one launch for TRBA's short lines, two for TrOCR's 4 × 50,265."""
+    from manuscript_tpu_torch.models.trocr import TrOCRConfig
+    from manuscript_tpu_torch.ops import beam_select as bs
+    from manuscript_tpu_torch.recognizers.trba import TRBA
+    from manuscript_tpu_torch.recognizers.trocr import TrOCR
+
+    trba = TRBA(device="cuda", allow_random_init=True, seed=5, max_length=7, hidden_size=64,
+                img_h=32, img_w=64, cnn_stage_plan="micro")  # K1 takes H a multiple of 64
+    crops = torch.randint(0, 256, (4, 32, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = bs.launches
+    with torch.inference_mode():
+        trba.recognize_tensor(crops, "beam", 3, 0.9, 1.7)
+    torch.cuda.synchronize()
+    assert bs.launches - before == 7
+    cfg = TrOCRConfig(image_size=32, patch_size=8, enc_hidden=32, enc_layers=1, enc_heads=4,
+                      enc_mlp=64, d_model=48, dec_layers=1, dec_heads=4, dec_ffn=96,
+                      max_position_embeddings=40)
+    trocr = TrOCR(device="cuda", allow_random_init=True, config=cfg, max_length=5)
+    lines = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = bs.launches
+    with torch.inference_mode():
+        trocr.recognize_tensor(lines, "beam", 4, 0.9, 1.0)
+    torch.cuda.synchronize()
+    assert bs.launches - before == 5 * 2
